@@ -1,0 +1,261 @@
+"""Serving engine: the eval-mode ModifiedUNet forward on the card.
+
+The counterpart of the JAX package's serving.py ServingModel (Graph
+WaveNet only). At build it folds every BatchNorm into a per-channel
+affine (eps 1e-5), drops dropout, stacks the Graph WaveNet weights and
+bakes the static + adaptive supports, once. The forward:
+
+  U-Net contraction   5 DoubleConvs (ops/double_conv.py) with 2×2 max-pools
+  bottleneck encoder  2 Dense + ReLU, float32
+  Date2Vec            float32 (models/date2vec.py)
+  Graph WaveNet       one kernel for the whole stack (ops/gwnet_stack.py)
+  bottleneck decoder  2 Dense + ReLU, float32
+  U-Net expansion     4 × (ConvTranspose 2×2 → pad-to-match → concat skip →
+                      DoubleConv), then the 1×1 head
+
+Max-pool, Dense, ConvTranspose, concat and the 1×1 head are the ops the
+JAX engine leaves to XLA; here they stay PyTorch ops. Every batch size
+takes the same path.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from multimodal_outage_tpu_torch.core.config import DataConfig, ModelConfig
+from multimodal_outage_tpu_torch.core.device import resolve_device
+from multimodal_outage_tpu_torch.core.metrics import MeanAggregator, regression_metrics
+from multimodal_outage_tpu_torch.core.registry import leave_one_out
+from multimodal_outage_tpu_torch.models import date2vec
+from multimodal_outage_tpu_torch.ops.double_conv import (
+    double_conv_reference,
+    fold_batchnorm,
+    fused_double_conv,
+)
+from multimodal_outage_tpu_torch.ops.gwnet_stack import (
+    adaptive_supports,
+    gwnet_stack_forward,
+    stack_forward_reference,
+    stack_params_from_module,
+)
+from multimodal_outage_tpu_torch.weights import conv_transpose_weight
+
+
+class ServingModel:
+    """Eval forward built once from a variables tree (weights.py).
+
+    reference=True runs the plain PyTorch versions of the two kernels
+    instead of the kernels, on whatever device — the engine the kernel
+    path is held against. The engine is immutable after construction."""
+
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        variables: Dict[str, Any],
+        supports,
+        horizon: int = 7,
+        device: Optional[str] = "cuda",
+        reference: bool = False,
+    ):
+        g = cfg.gwnet
+        if cfg.st_gnn != "gwnet":
+            raise NotImplementedError(
+                f"st_gnn={cfg.st_gnn!r}: the port serves Graph WaveNet only; "
+                "DCRNN comes with the ROADMAP item 'DCRNN + kernel 5'"
+            )
+        if (
+            g.kernel_size != 1 or not g.gcn_bool or g.reference_view_quirk
+            or (supports is None and not g.addaptadj)
+        ):
+            raise NotImplementedError(
+                "the whole-stack Graph WaveNet kernel needs kernel_size=1, "
+                "gcn_bool, diffusion supports (static or adaptive) and no "
+                "reference_view_quirk; other configurations come with the "
+                "ROADMAP item 'kernel 3 (per-layer gwnet)'"
+            )
+        self.cfg = cfg
+        self.horizon = horizon
+        self.device = dev = resolve_device(device)
+        self.dtype = dtype = getattr(torch, cfg.compute_dtype)
+        self.reference = reference
+        self._double_conv_fn = double_conv_reference if reference else fused_double_conv
+        self._stack_fn = stack_forward_reference if reference else gwnet_stack_forward
+        p, bs = variables["params"], variables["batch_stats"]
+        f32 = lambda v: torch.as_tensor(v).to(dev, torch.float32).contiguous()
+        cast = lambda v: torch.as_tensor(v).to(dev, dtype).contiguous()
+
+        def folded(pp, ss):
+            s1, b1 = fold_batchnorm(*(f32(v) for v in (
+                pp["bn1"]["scale"], pp["bn1"]["bias"], ss["bn1"]["mean"], ss["bn1"]["var"])))
+            s2, b2 = fold_batchnorm(*(f32(v) for v in (
+                pp["bn2"]["scale"], pp["bn2"]["bias"], ss["bn2"]["mean"], ss["bn2"]["var"])))
+            return (cast(pp["conv1"]["kernel"]), s1, b1, cast(pp["conv2"]["kernel"]), s2, b2)
+
+        cp, cbs = p["contraction"], bs["contraction"]
+        self._down = [folded(cp["inc"], cbs["inc"])] + [
+            folded(cp[f"down{i}"]["conv"], cbs[f"down{i}"]["conv"])
+            for i in range(1, cfg.depth + 1)
+        ]
+        dense = lambda d: (f32(d["kernel"]), f32(d["bias"]))
+        self._encoder = [dense(p["encoder"]["fc1"]), dense(p["encoder"]["fc2"])]
+        self._decoder = [dense(p["decoder"]["fc1"]), dense(p["decoder"]["fc2"])]
+        self._d2v = {k: {kk: f32(vv) for kk, vv in v.items()} for k, v in p["date2vec"].items()}
+
+        st = p["st_gnn"]
+        self._stack_sp = {
+            k: v.to(dev) for k, v in stack_params_from_module(
+                st, bs["st_gnn"], g.blocks * g.layers, dtype).items()
+        }
+        self._stack_supports = adaptive_supports(
+            None if supports is None else f32(supports),
+            f32(st["nodevec1"]) if g.addaptadj else None,
+            f32(st["nodevec2"]) if g.addaptadj else None,
+            dtype,
+        )
+
+        ep, ebs = p["expansion"], bs["expansion"]
+        self._up = [
+            (
+                conv_transpose_weight(cast(ep[f"up{i}"]["up"]["kernel"])),
+                cast(ep[f"up{i}"]["up"]["bias"]),
+                folded(ep[f"up{i}"]["conv"], ebs[f"up{i}"]["conv"]),
+            )
+            for i in range(1, cfg.depth + 1)
+        ]
+        oc = ep["outc"]["conv"]
+        self._outc = (cast(torch.as_tensor(oc["kernel"])[0, 0]), cast(oc["bias"]))
+
+    @torch.inference_mode()
+    def __call__(self, x: torch.Tensor, date_feats: torch.Tensor) -> torch.Tensor:
+        """x [B, N, T, H, W, Cin], date_feats [B, T, 6] → [B, N, T, H, W,
+        Cout] float32."""
+        cfg, dtype = self.cfg, self.dtype
+        b, n, t, hh, ww, c_in = x.shape
+        m = b * n * t
+        dc = self._double_conv_fn
+
+        # contraction
+        y = dc(x.to(self.device, dtype).reshape(m, hh, ww, c_in).contiguous(), *self._down[0])
+        skips = [y]
+        for i in range(1, cfg.depth + 1):
+            y = F.max_pool2d(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).contiguous()
+            y = dc(y, *self._down[i])
+            if i < cfg.depth:
+                skips.append(y)
+
+        # bottleneck encoder (float32 Dense, as the JAX engine's f32 params
+        # promote it) + Date2Vec in float32
+        z = y.reshape(b, n, t, -1).float()
+        for w, bias in self._encoder:
+            z = torch.relu(z @ w + bias)
+        te = date2vec.encode(date_feats.to(self.device), self._d2v).to(dtype).float()
+        te = te[:, None].expand(b, n, t, te.shape[-1])
+        z = torch.cat([z, te], -1).to(dtype).contiguous()
+
+        # Graph WaveNet, whole stack in one kernel
+        z = self._stack_fn(z, self._stack_supports, self._stack_sp, order=cfg.gwnet.order)
+
+        # bottleneck decoder
+        d = z.float()
+        for w, bias in self._decoder:
+            d = torch.relu(d @ w + bias)
+        grid = hh // (2**cfg.depth)
+        y = d.reshape(m, grid, grid, -1).to(dtype)
+
+        # expansion
+        for i, (wt, bt, conv_args) in enumerate(self._up, start=1):
+            y = F.conv_transpose2d(y.permute(0, 3, 1, 2), wt, bt, stride=2).permute(0, 2, 3, 1)
+            skip = skips[-i]
+            dh, dw = skip.shape[1] - y.shape[1], skip.shape[2] - y.shape[2]
+            if dh or dw:
+                y = F.pad(y, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+            y = dc(torch.cat([skip, y], -1).contiguous(), *conv_args)
+        w, bias = self._outc
+        y = y @ w + bias
+        return y.reshape(b, n, t, hh, ww, -1).float()
+
+
+def latency_percentiles(times_ms: List[float]) -> Dict[str, float]:
+    vals = sorted(times_ms)
+    return {
+        "p50_ms": vals[len(vals) // 2],
+        "p90_ms": vals[min(int(0.9 * len(vals)), len(vals) - 1)],
+    }
+
+
+def time_requests(serve: ServingModel, batches: List[Dict[str, torch.Tensor]], repeats: int = 3) -> List[float]:
+    """Per-request latency in ms: one warm-up forward, then each batch
+    `repeats` times. On the card each request is bracketed by CUDA events
+    on the current stream (host enqueue included, as a caller sees it);
+    on the CPU by the host clock."""
+    serve(batches[0]["x"], batches[0]["date_feats"])
+    out = []
+    for batch in batches:
+        for _ in range(repeats):
+            if serve.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                serve(batch["x"], batch["date_feats"])
+                end.record()
+                end.synchronize()
+                out.append(start.elapsed_time(end))
+            else:
+                t0 = time.perf_counter()
+                serve(batch["x"], batch["date_feats"])
+                out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def serve_eval(
+    data_cfg: DataConfig,
+    serve: ServingModel,
+    store,
+    test_case: str,
+    batch_size: int,
+    max_batches: Optional[int] = None,
+    latency_stats: bool = False,
+) -> Tuple[Dict[str, float], Dict[str, float], int]:
+    """Sweep the held-out hurricane through the engine, as the JAX
+    package's train/loop.py serve_eval does. Returns (metrics, latency,
+    forwards): metrics are the mean of per-batch values; latency (with
+    latency_stats) has p50/p90 per-request ms over up to six full-size
+    batches; forwards counts every engine call made here."""
+    from multimodal_outage_tpu_torch.data.dataset import WindowDataset, batch_indices
+    from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline
+
+    _, test_cases = leave_one_out(test_case)
+    test_ds = WindowDataset.from_case_study(
+        store, test_cases, data_cfg.dataset_range, data_cfg.horizon
+    )
+    if len(test_ds) == 0:
+        raise ValueError(
+            f"no test windows for {test_case!r} at dataset_range "
+            f"{data_cfg.dataset_range} and horizon {data_cfg.horizon}"
+        )
+    pipe = DevicePipeline(
+        store, data_cfg.mean, data_cfg.std, data_cfg.image_size,
+        serve.dtype, serve.device,
+    )
+    agg = MeanAggregator()
+    timed: List[Dict[str, torch.Tensor]] = []
+    forwards = 0
+    for k, idx in enumerate(batch_indices(len(test_ds), batch_size)):
+        if max_batches is not None and k >= max_batches:
+            break
+        batch = pipe.batch(test_ds, idx)
+        yhat = serve(batch["x"], batch["date_feats"])
+        forwards += 1
+        agg.update(regression_metrics(yhat, batch["y"]))
+        if len(timed) < 6 and len(idx) == batch_size:
+            timed.append(batch)
+    latency: Dict[str, float] = {}
+    if latency_stats and timed:
+        times = time_requests(serve, timed)
+        forwards += 1 + len(times)
+        latency = latency_percentiles(times)
+    return agg.compute(), latency, forwards

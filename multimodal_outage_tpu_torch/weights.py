@@ -1,0 +1,201 @@
+"""Weight bridge: the JAX package's variable tree ⇄ the port's tensors.
+
+The port keeps the flax tree as it is — {"params", "batch_stats"} nested
+by module name, with the same key paths — and the flax layouts: Dense
+kernels [in, out] (used as x @ W), conv kernels HWIO (the NHWC DoubleConv
+kernel reads them as they are). Only the ConvTranspose kernel changes
+layout, where the serving engine hands it to F.conv_transpose2d
+(conv_transpose_weight). Loading orbax checkpoints waits for the
+checkpoint slice of the port (ROADMAP).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from multimodal_outage_tpu_torch.core.config import ModelConfig
+from multimodal_outage_tpu_torch.data.adjacency import n_static_supports
+
+# Typical magnitudes of the raw [0,0,0,y,m,d] Date2Vec inputs; its encoder
+# kernels are scaled inversely so random-init embeddings are O(1)
+# (JAX models/date2vec.py:28).
+_D2V_FEATURE_SCALE = np.asarray((1.0, 1.0, 1.0, 2000.0, 6.5, 15.5), np.float32)
+
+Tree = Dict[str, Any]
+
+
+def from_flax(variables: Tree) -> Tree:
+    """Nested dicts of numpy (or JAX) arrays → the same tree of float32
+    CPU tensors."""
+    if hasattr(variables, "items"):
+        return {k: from_flax(v) for k, v in variables.items()}
+    return torch.from_numpy(np.array(variables, dtype=np.float32))
+
+
+def conv_transpose_weight(kernel: torch.Tensor) -> torch.Tensor:
+    """flax ConvTranspose kernel [kh, kw, in, out] → F.conv_transpose2d
+    weight [in, out, kh, kw]. flax's transposed conv is a correlation over
+    the dilated input, torch's the gradient of a convolution: the same op
+    only with the kernel flipped in both spatial axes
+    (JAX parity/torch_import.py:55-69)."""
+    return kernel.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+
+
+def flatten(tree: Tree, prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if hasattr(v, "items"):
+            out.update(flatten(v, path))
+        else:
+            out[path] = v
+    return out
+
+
+def unflatten(flat: Dict[str, Any]) -> Tree:
+    tree: Tree = {}
+    for path, v in flat.items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def save_npz(path: str, variables: Tree) -> None:
+    """Write the tree as an .npz of flattened a/b/c paths."""
+    np.savez(
+        path,
+        **{k: np.asarray(torch.as_tensor(v).float().cpu()) for k, v in flatten(variables).items()},
+    )
+
+
+def load_npz(path: str) -> Tree:
+    with np.load(path) as f:
+        return unflatten({k: torch.from_numpy(f[k].copy()) for k in f.files})
+
+
+def _lecun(rng: np.random.Generator, shape, fan_in: int) -> np.ndarray:
+    """flax lecun_normal: truncated (±2σ) normal, variance 1/fan_in."""
+    z = rng.standard_normal(shape)
+    bad = np.abs(z) > 2
+    while bad.any():
+        z[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(z) > 2
+    # 0.8796… is the std of a unit normal truncated at ±2
+    return (z * np.sqrt(1.0 / fan_in) / 0.87962566103423978).astype(np.float32)
+
+
+def init_variables(
+    cfg: ModelConfig, horizon: int, n_counties: int, seed: int,
+    image_size: int = 128,
+) -> Tree:
+    """Random variables with exactly the key paths and shapes of the JAX
+    package's build_model(cfg, horizon).init(...) on [B, n_counties, T,
+    image_size, image_size, C] inputs with the static supports of
+    cfg.gwnet.adjtype, as float32 tensors, made with numpy from `seed`.
+    Distributions follow flax's initializers (lecun_normal kernels, zero
+    biases, unit BN scales, N(0, 1) node embeddings); the values are not
+    flax's. horizon does not change the Graph WaveNet's shapes."""
+    del horizon
+    g = cfg.gwnet
+    if cfg.st_gnn != "gwnet" or g.kernel_size != 1 or not g.gcn_bool or g.reference_view_quirk:
+        raise NotImplementedError(
+            "init_variables covers the Graph WaveNet fused-path tree "
+            "(kernel_size=1, gcn_bool, no reference_view_quirk); the other "
+            "st-GNN trees come with the ROADMAP items that port them"
+        )
+    rng = np.random.default_rng(seed)
+    params: Tree = {}
+    stats: Tree = {}
+
+    def dense(cin, cout, scale=None):
+        k = _lecun(rng, (cin, cout), cin)
+        if scale is not None:
+            k = k / scale[:, None]
+        return {"kernel": k, "bias": np.zeros(cout, np.float32)}
+
+    def bn(c):
+        return (
+            {"scale": np.ones(c, np.float32), "bias": np.zeros(c, np.float32)},
+            {"mean": np.zeros(c, np.float32), "var": np.ones(c, np.float32)},
+        )
+
+    def double_conv(cin, c):
+        p = {
+            "conv1": {"kernel": _lecun(rng, (3, 3, cin, c), 9 * cin)},
+            "conv2": {"kernel": _lecun(rng, (3, 3, c, c), 9 * c)},
+        }
+        s = {}
+        for name in ("bn1", "bn2"):
+            p[name], s[name] = bn(c)
+        return p, s
+
+    depth, base = cfg.depth, cfg.base_channels
+    params["contraction"], stats["contraction"] = {}, {}
+    pc, sc = params["contraction"], stats["contraction"]
+    pc["inc"], sc["inc"] = double_conv(cfg.input_channels, base)
+    ch = base
+    for i in range(1, depth + 1):
+        p, s = double_conv(ch, 2 * ch)
+        pc[f"down{i}"], sc[f"down{i}"] = {"conv": p}, {"conv": s}
+        ch *= 2
+
+    grid = image_size // (2**depth)
+    flat = grid * grid * ch
+    hidden = flat // cfg.compression_factor
+    fvs = cfg.feature_vector_size
+    params["encoder"] = {"fc1": dense(flat, hidden), "fc2": dense(hidden, fvs)}
+    k = cfg.time_embed_size
+    params["date2vec"] = {
+        "fc1": dense(6, k // 2, _D2V_FEATURE_SCALE),
+        "fc2": dense(6, k // 2 + k % 2, _D2V_FEATURE_SCALE),
+    }
+
+    c, cd, cs, ce = g.residual_channels, g.dilation_channels, g.skip_channels, g.end_channels
+    n_sup = n_static_supports(g.adjtype) + int(g.addaptadj)
+    nt = n_sup * g.order + 1
+    st: Tree = {"start_conv": dense(cfg.st_gnn_in_dim, c)}
+    st_stats: Tree = {}
+    if g.addaptadj:
+        st["nodevec1"] = rng.standard_normal((n_counties, g.node_embed_dim)).astype(np.float32)
+        st["nodevec2"] = rng.standard_normal((g.node_embed_dim, n_counties)).astype(np.float32)
+    for i in range(g.blocks * g.layers):
+        for name, (cin_, cout_) in (
+            ("filter_conv", (c, cd)), ("gate_conv", (c, cd)),
+            ("skip_conv", (cd, cs)), ("gconv", (nt * cd, c)),
+        ):
+            d = dense(cin_, cout_)
+            st[f"{name}{i}_kernel"], st[f"{name}{i}_bias"] = d["kernel"], d["bias"]
+        st[f"bn{i}"], st_stats[f"bn{i}"] = bn(c)
+    st["end_conv_1"] = dense(cs, ce)
+    st["end_conv_2"] = dense(ce, fvs)
+    params["st_gnn"], stats["st_gnn"] = st, st_stats
+
+    params["decoder"] = {
+        "fc1": dense(fvs, fvs * cfg.compression_factor),
+        "fc2": dense(fvs * cfg.compression_factor, flat),
+    }
+
+    params["expansion"], stats["expansion"] = {}, {}
+    pe, se = params["expansion"], stats["expansion"]
+    skip_ch = base * 2 ** (depth - 1)
+    for i in range(1, depth + 1):
+        up = {
+            "kernel": _lecun(rng, (2, 2, ch, ch // 2), 4 * ch),
+            "bias": np.zeros(ch // 2, np.float32),
+        }
+        p, s = double_conv(skip_ch + ch // 2, skip_ch)
+        pe[f"up{i}"], se[f"up{i}"] = {"up": up, "conv": p}, {"conv": s}
+        ch, skip_ch = skip_ch, skip_ch // 2
+    pe["outc"] = {
+        "conv": {
+            "kernel": _lecun(rng, (1, 1, ch, cfg.output_channels), ch),
+            "bias": np.zeros(cfg.output_channels, np.float32),
+        }
+    }
+    return from_flax({"params": params, "batch_stats": stats})

@@ -1,0 +1,170 @@
+"""The port's kernels on the card, each held against its plain version.
+
+Imports nothing of JAX, so it runs on a machine with the card and no JAX:
+
+    python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
+
+Tests marked `cuda` skip where torch.cuda.is_available() is False.
+Tolerances: float32 within 1e-4 (summation order only). In bfloat16 a
+different summation order can move a value across a rounding boundary and
+the flip propagates, so the kernel is held to the plain version's own
+accuracy against the same computation in float32 (chip_smoke.py states
+the same bar)."""
+
+import numpy as np
+import pytest
+import torch
+
+from multimodal_outage_tpu_torch import weights
+from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
+from multimodal_outage_tpu_torch.data.adjacency import n_static_supports
+from multimodal_outage_tpu_torch.ops import double_conv as dcm
+from multimodal_outage_tpu_torch.ops import gwnet_stack as gsm
+from multimodal_outage_tpu_torch.serving import ServingModel
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (README: the port's tests on the H100)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _assert_kernel_matches(got, want, truth):
+    got, want, truth = got.float(), want.float(), truth.float()
+    assert torch.isfinite(got).all()
+    if torch.equal(want, truth):  # float32: the plain version is the truth
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        return
+    e_got, e_want = (got - truth).abs(), (want - truth).abs()
+    assert e_got.max() <= 2.0 * e_want.max() + 1e-6
+    assert e_got.square().mean().sqrt() <= 1.25 * e_want.square().mean().sqrt() + 1e-6
+
+
+def _double_conv_args(m, h, w, cin, c, dtype, device, seed=1):
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt=torch.float32: torch.from_numpy(a.astype(np.float32)).to(device, dt)
+    return (
+        t(rng.standard_normal((m, h, w, cin)), dtype),
+        t(rng.standard_normal((3, 3, cin, c)) * (2 / (9 * cin)) ** 0.5, dtype),
+        t(rng.uniform(0.5, 1.5, c)), t(rng.standard_normal(c) * 0.1),
+        t(rng.standard_normal((3, 3, c, c)) * (2 / (9 * c)) ** 0.5, dtype),
+        t(rng.uniform(0.5, 1.5, c)), t(rng.standard_normal(c) * 0.1),
+    )
+
+
+# the 9 (H, Cin, C) of a serving forward, plus ragged tiles (12×20)
+SHAPES = [
+    (128, 128, 1, 4), (64, 64, 4, 8), (32, 32, 8, 16), (16, 16, 16, 32), (8, 8, 32, 64),
+    (16, 16, 64, 32), (32, 32, 32, 16), (64, 64, 16, 8), (128, 128, 8, 4), (12, 20, 8, 4),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,w,cin,c", SHAPES)
+def test_double_conv_kernel_matches_plain(cuda, dtype, h, w, cin, c):
+    args = _double_conv_args(3, h, w, cin, c, dtype, cuda)
+    before = dcm.fused_double_conv.launches
+    got = dcm.fused_double_conv(*args)
+    torch.cuda.synchronize()
+    assert dcm.fused_double_conv.launches == before + 1
+    want = dcm.double_conv_reference(*args)
+    truth = dcm.double_conv_reference(*(a.float() for a in args))
+    _assert_kernel_matches(got, want, truth)
+
+
+def _stack_inputs(cfg, n, b, t, dtype, device):
+    var = weights.init_variables(cfg, t, n, seed=2, image_size=16)
+    st, bs = var["params"]["st_gnn"], var["batch_stats"]["st_gnn"]
+    rng = np.random.default_rng(3)
+    for v in bs.values():  # non-trivial running stats: BN folding exercised
+        v["mean"] = torch.from_numpy(rng.normal(0, 0.1, v["mean"].shape).astype(np.float32))
+        v["var"] = torch.from_numpy(rng.uniform(0.5, 1.5, v["var"].shape).astype(np.float32))
+    g = cfg.gwnet
+    sp = {k: v.to(device) for k, v in gsm.stack_params_from_module(
+        st, bs, g.blocks * g.layers, dtype).items()}
+    sup = gsm.adaptive_supports(
+        torch.stack([torch.eye(n)] * n_static_supports(g.adjtype)),
+        st.get("nodevec1"), st.get("nodevec2"), dtype,
+    ).to(device)
+    x = torch.from_numpy(
+        rng.standard_normal((b, n, t, cfg.st_gnn_in_dim)).astype(np.float32)
+    ).to(device, dtype)
+    return x, sup, sp
+
+
+SMALL = GWNetConfig(
+    residual_channels=8, dilation_channels=8, skip_channels=16, end_channels=32,
+    blocks=2, layers=2, node_embed_dim=4,
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "gw,n,b",
+    [(SMALL, 7, 2), (GWNetConfig(), 67, 1), (GWNetConfig(), 67, 16),
+     (GWNetConfig(addaptadj=False), 20, 2),  # one support
+     (GWNetConfig(adjtype="doubletransition", order=3), 9, 2)],  # 3 supports, order 3
+)
+def test_stack_kernel_matches_plain(cuda, dtype, gw, n, b):
+    cfg = ModelConfig(gwnet=gw)
+    x, sup, sp = _stack_inputs(cfg, n, b, 7, dtype, cuda)
+    before = gsm.gwnet_stack_forward.launches
+    got = gsm.gwnet_stack_forward(x, sup, sp, order=gw.order)
+    torch.cuda.synchronize()
+    assert gsm.gwnet_stack_forward.launches == before + 1
+    want = gsm.stack_forward_reference(x, sup, sp, order=gw.order)
+    truth = gsm.stack_forward_reference(
+        x.float(), sup.float(), {k: v.float() for k, v in sp.items()}, order=gw.order)
+    _assert_kernel_matches(got, want, truth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_engine_kernels_match_plain_engine(cuda, dtype):
+    cfg = ModelConfig(compute_dtype=dtype)
+    n, t, h = 4, 3, 32
+    var = weights.init_variables(cfg, t, n, seed=0, image_size=h)
+    sup = torch.eye(n)[None]
+    x = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((2, n, t, h, h, 1)).astype(np.float32)).to(cuda)
+    feats = torch.tensor([0, 0, 0, 2022, 9, 26], dtype=torch.float32).repeat(2, t, 1).to(cuda)
+    fast = ServingModel(cfg, var, sup, horizon=t, device="cuda")
+    before = (dcm.fused_double_conv.launches, gsm.gwnet_stack_forward.launches)
+    got = fast(x, feats)
+    torch.cuda.synchronize()
+    assert (dcm.fused_double_conv.launches - before[0],
+            gsm.gwnet_stack_forward.launches - before[1]) == (9, 1)
+    want = ServingModel(cfg, var, sup, horizon=t, device="cuda", reference=True)(x, feats)
+    f32 = ModelConfig(compute_dtype="float32")
+    truth = ServingModel(f32, var, sup, horizon=t, device="cuda", reference=True)(x, feats)
+    _assert_kernel_matches(got, want, want if dtype == "float32" else truth)
+
+
+@pytest.mark.cuda
+def test_wrappers_reject_bad_inputs(cuda):
+    args = _double_conv_args(1, 8, 8, 4, 8, torch.float32, cuda)
+    with pytest.raises(ValueError):  # weights in another dtype than x
+        dcm.fused_double_conv(args[0], args[1].to(torch.bfloat16), *args[2:])
+    with pytest.raises(TypeError):  # fp16 storage is not taken
+        dcm.fused_double_conv(args[0].half(), *args[1:])
+    with pytest.raises(ValueError):  # non-contiguous x
+        dcm.fused_double_conv(args[0].transpose(1, 2), *args[1:])
+    x, sup, sp = _stack_inputs(ModelConfig(gwnet=SMALL), 7, 1, 2, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        gsm.gwnet_stack_forward(x, sup.to(torch.bfloat16), sp)
+
+
+def test_wrappers_reject_other_devices():
+    """Only CPU tensors take the plain version; any other device that is
+    not CUDA raises instead of being served by it."""
+    args = _double_conv_args(1, 4, 4, 1, 4, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="device"):
+        dcm.fused_double_conv(*(a.to("meta") for a in args))
+    x, sup, sp = _stack_inputs(ModelConfig(gwnet=SMALL), 7, 1, 2, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="device"):
+        gsm.gwnet_stack_forward(x.to("meta"), sup, sp)

@@ -1,0 +1,101 @@
+"""The port's serving engine on the CPU (plain versions of both kernels)
+against the JAX package's ServingModel with its Pallas kernels in
+interpret mode, and against the flax eval forward — same variables, same
+numpy inputs, float32 — at the JAX package's own serving bar
+(tests/test_serving.py: atol 5e-5, rtol 1e-4)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from multimodal_outage_tpu.core.config import ModelConfig as JaxModelConfig
+from multimodal_outage_tpu.models.fusion import build_model
+from multimodal_outage_tpu.serving import ServingModel as JaxServingModel
+from multimodal_outage_tpu_torch import weights
+from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
+from multimodal_outage_tpu_torch.serving import ServingModel
+
+N, T, H = 4, 2, 16
+
+
+def _variables_and_inputs(b, seed=5):
+    cfg = JaxModelConfig(compute_dtype="float32")
+    model = build_model(cfg, horizon=T)
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, N, T, H, H, 1)).astype(np.float32)
+    feats = np.tile(np.array([0, 0, 0, 2022, 9, 26], np.float32), (b, T, 1))
+    feats[..., 5] += np.arange(T, dtype=np.float32)
+    sup = np.eye(N, dtype=np.float32)[None]
+    key = jax.random.PRNGKey(seed)
+    variables = model.init({"params": key, "dropout": key}, x, feats, sup, train=False)
+    # non-trivial batch stats so BN folding is exercised
+    bs = jax.tree.map(
+        lambda v: v + 0.3 * jnp.arange(v.size, dtype=v.dtype).reshape(v.shape) / v.size,
+        variables["batch_stats"],
+    )
+    variables = {"params": variables["params"], "batch_stats": bs}
+    return cfg, model, variables, x, feats, sup
+
+
+@pytest.mark.parametrize("b", [1, 2])
+def test_serving_matches_jax_engine_and_flax_eval(b):
+    cfg, model, variables, x, feats, sup = _variables_and_inputs(b)
+    y_flax = np.asarray(model.apply(variables, x, feats, sup, train=False))
+    jserve = JaxServingModel(cfg, variables, jnp.asarray(sup), use_pallas=True, interpret=True)
+    assert jserve.gwnet_stack  # the stack kernel is engaged
+    y_jax = np.asarray(jserve(jnp.asarray(x), jnp.asarray(feats)))
+
+    tvars = weights.from_flax(jax.tree.map(np.asarray, variables))
+    serve = ServingModel(
+        ModelConfig(compute_dtype="float32"), tvars, torch.from_numpy(sup),
+        horizon=T, device="cpu",
+    )
+    y = serve(torch.from_numpy(x), torch.from_numpy(feats))
+    assert y.dtype == torch.float32 and tuple(y.shape) == (b, N, T, H, H, 1)
+    np.testing.assert_allclose(y.numpy(), y_jax, atol=5e-5, rtol=1e-4)
+    np.testing.assert_allclose(y.numpy(), y_flax, atol=5e-5, rtol=1e-4)
+
+
+def test_reference_engine_equals_kernel_engine_on_cpu():
+    """On CPU tensors the wrappers run the plain versions, so the engine
+    and its reference=True twin agree exactly."""
+    cfg = ModelConfig(compute_dtype="float32")
+    var = weights.init_variables(cfg, T, N, seed=0, image_size=H)
+    sup = torch.eye(N)[None]
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((1, N, T, H, H, 1)).astype(np.float32))
+    feats = torch.zeros(1, T, 6)
+    a = ServingModel(cfg, var, sup, horizon=T, device="cpu")(x, feats)
+    b = ServingModel(cfg, var, sup, horizon=T, device="cpu", reference=True)(x, feats)
+    assert torch.equal(a, b)
+
+
+def test_bf16_engine_runs_on_cpu():
+    cfg = ModelConfig()
+    var = weights.init_variables(cfg, T, N, seed=0, image_size=H)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal((2, N, T, H, H, 1)).astype(np.float32))
+    y = ServingModel(cfg, var, torch.eye(N)[None], horizon=T, device="cpu")(x, torch.zeros(2, T, 6))
+    assert y.dtype == torch.float32 and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        ModelConfig(st_gnn="dcrnn"),
+        ModelConfig(gwnet=GWNetConfig(kernel_size=2)),
+        ModelConfig(gwnet=GWNetConfig(gcn_bool=False)),
+        ModelConfig(gwnet=GWNetConfig(reference_view_quirk=True)),
+    ],
+)
+def test_unported_configs_raise(cfg):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingModel(cfg, {"params": {}, "batch_stats": {}}, None, device="cpu")
+
+
+def test_no_silent_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card; the check is for one without")
+    var = weights.init_variables(ModelConfig(), T, N, seed=0, image_size=H)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingModel(ModelConfig(), var, torch.eye(N)[None], horizon=T)

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (multimodal_outage_tpu_torch) on
 one NVIDIA card: builds the hand-written kernels from csrc/, holds each
-against its plain PyTorch version at every shape the serving path gives
-it, then serves a held-out hurricane end to end at full width through the
-CLI's code path and checks that the path went through the kernels.
+against its plain PyTorch version at every shape the serving and training
+paths give it, serves a held-out hurricane end to end at full width
+through the CLI's code path, trains one epoch at full width through the
+CLI's code path, and checks that each path went through its kernels.
 
     python3 chip_smoke.py
 
@@ -46,6 +47,20 @@ DOUBLE_CONV_SHAPES = (
 # version's.
 F32_TOL = 1e-4
 BF16_MAX_RATIO, BF16_RMS_RATIO = 2.0, 1.25
+# images of one full-width B=8 train step (8 windows × 67 counties × 7
+# days) and the (H, C) of its four 2×2 max-pools
+M_B8 = 8 * 67 * 7
+POOL_SHAPES = ((128, 4), (64, 8), (32, 16), (16, 32))
+# phase 5 store: all three storms at ±16 days; --dataset_range 16 gives
+# 35 train windows (5 steps at B=8), 15 val and 18 test windows
+TRAIN_MARGIN = 16
+# phase 5b: a B=8 step with the pool kernels against the same step with
+# the plain pool, in float32 with deterministic cuDNN and no TF32: loss,
+# BN running stats and each gradient leaf within STEP_RTOL of the plain
+# step's, relative to the leaf's largest entry (or 1e-3 of the largest
+# gradient of all, for leaves whose true gradient is 0 and whose entries
+# are summation noise)
+STEP_RTOL = 1e-5
 
 
 def log(*a):
@@ -273,6 +288,173 @@ def engine_vs_plain(torch, store_dir):
     return failures
 
 
+def check_max_pool(torch, F, mp, gen):
+    """Phase 3c: the max-pool kernel pair at the four pool shapes of a
+    full-width B=8 train step, bf16 and float32. Kernel and plain version
+    only copy values, so they must agree exactly."""
+    rows, failures = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for h, c in POOL_SHAPES:
+            x = torch.relu(torch.randn(M_B8, h, h, c, generator=gen, device="cuda")).to(dtype)
+            g = torch.randn(M_B8, h // 2, h // 2, c, generator=gen, device="cuda").to(dtype)
+            y, dx = mp.max_pool_forward(x), mp.max_pool_backward(x, g)
+            y_ref, dx_ref = mp.max_pool_reference(x), mp.max_pool_backward_reference(x, g)
+            torch.cuda.synchronize()
+            err_f = float((y.float() - y_ref.float()).abs().max())
+            err_b = float((dx.float() - dx_ref.float()).abs().max())
+            # library yardstick: cuDNN/ATen max-pool on the channels-last
+            # view and its indices backward (ties route differently: its
+            # values are not compared, only its time)
+            xl, gl = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+            _, idx = F.max_pool2d(xl, 2, return_indices=True)
+            lib_bwd = lambda: torch.ops.aten.max_pool2d_with_indices_backward(
+                gl, xl, [2, 2], [2, 2], [0, 0], [1, 1], False, idx)
+            for name, err, kern, plain, lib, back in (
+                ("max_pool_fwd", err_f, lambda: mp.max_pool_forward(x),
+                 lambda: mp.max_pool_reference(x), lambda: F.max_pool2d(xl, 2), False),
+                ("max_pool_bwd", err_b, lambda: mp.max_pool_backward(x, g),
+                 lambda: mp.max_pool_backward_reference(x, g), lib_bwd, True),
+            ):
+                nbytes = mp.min_bytes(x.numel(), x.element_size(), back)
+                nops = mp.ops(x.numel(), back)
+                t_bytes = 1e3 * nbytes / H100_BYTES_PER_S
+                t_ops = 1e3 * nops / PEAK_OPS["float32"]
+                row = {
+                    "kernel": name, "dtype": dn, "M": M_B8, "H": h, "C": c,
+                    "max_abs_err": err, "ok": err == 0.0, "ms": cuda_ms(kern, 20),
+                    "plain_ms": cuda_ms(plain, 5), "library_ms": cuda_ms(lib, 20),
+                    "bytes": nbytes, "ops": nops, "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                }
+                log("max_pool", json.dumps(row))
+                rows.append(row)
+                if err != 0.0:
+                    failures.append(f"{name} {dn} H={h} C={c}: max err {err}")
+            del x, g, y, dx, y_ref, dx_ref, idx
+    return rows, failures
+
+
+def train_end_to_end(torch, cli, mp, workdir):
+    """Phase 5: one epoch of `train --pool pallas` at full width (bf16,
+    B=8) through the CLI's code path, with the launch counters read
+    around exactly that run."""
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.checkpoint import CheckpointManager
+    from multimodal_outage_tpu_torch.core.config import ModelConfig
+    from multimodal_outage_tpu_torch.data.synthetic import generate_store
+
+    store_dir = os.path.join(workdir, "train_store")
+    t0 = time.perf_counter()
+    generate_store(store_dir, n_counties=67, image_size=128, margin=TRAIN_MARGIN, seed=11)
+    log(f"synth train store: {time.perf_counter() - t0:.1f} s")
+    cwd = os.getcwd()
+    os.chdir(workdir)  # the run directory is ./logs/<job_id>
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        mp.max_pool_forward.launches = 0
+        mp.max_pool_backward.launches = 0
+        out = cli.run(["train", "--data_dir", store_dir, "--case", "michael",
+                       "--dataset_range", str(TRAIN_MARGIN), "--epochs", "1",
+                       "--batch_size", "8", "--seed", "0", "--pool", "pallas",
+                       "--job_id", "smoke"])
+        torch.cuda.synchronize()
+        launches = (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        os.chdir(cwd)
+    log(f"phase 5: train {json.dumps(out)}")
+    steps, evals = out["train_steps"], out["eval_forwards"]
+    want = (4 * steps + 4 * evals, 4 * steps)
+    log(f"phase 5: {steps} train steps, {evals} eval forwards: pool launches "
+        f"(fwd, bwd) {launches}, expected {want}")
+    if steps < 2 or launches != want:
+        raise RuntimeError(f"phase 5: pool launches {launches}, expected {want}")
+    finals = [v for k, v in out.items() if k.startswith(("val_", "test_"))]
+    if len(finals) != 8 or not all(math.isfinite(v) for v in finals):
+        raise RuntimeError(f"phase 5: non-finite or missing final metrics {out}")
+    tree = CheckpointManager(os.path.join(workdir, "logs", "smoke", "checkpoints")).restore()
+    init = weights.flatten(weights.init_variables(ModelConfig(pool="pallas"), 7, 67, seed=0)["params"])
+    moved = sum(not torch.equal(v, init[k]) for k, v in weights.flatten(tree["params"]).items())
+    if tree["step"] != steps or moved < 0.9 * len(init):
+        raise RuntimeError(f"phase 5: checkpoint step {tree['step']} of {steps}, "
+                           f"{moved} of {len(init)} parameter leaves moved")
+    log(f"phase 5: checkpoint restored: step {tree['step']}, {moved} of {len(init)} "
+        f"parameter leaves moved from their init (the rest take no gradient)")
+    log(f"phase 5: train step p50 {out['train_step_ms_p50']:.3f} ms (CUDA events, "
+        f"B=8 bf16, after the first step); peak memory {peak / 2**30:.2f} GiB")
+    return store_dir, out, launches, peak
+
+
+def step_vs_plain(torch, store_dir):
+    """Phase 5b: one full-width B=8 train step with the pool kernels
+    against the same step with the plain pool, on the card."""
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.config import (
+        DEFAULT_NTL_MEAN,
+        DEFAULT_NTL_STD,
+        ModelConfig,
+    )
+    from multimodal_outage_tpu_torch.core.registry import HURRICANES
+    from multimodal_outage_tpu_torch.data.dataset import WindowDataset
+    from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline
+    from multimodal_outage_tpu_torch.data.store import load_store
+    from multimodal_outage_tpu_torch.models.fusion import build_model
+    from multimodal_outage_tpu_torch.train.state import create_train_state
+    from multimodal_outage_tpu_torch.train.steps import make_train_step
+
+    store = load_store(store_dir)
+    cases = {k: HURRICANES[k] for k in ("ian", "idalia")}
+    ds = WindowDataset.from_case_study(store, cases, TRAIN_MARGIN, 7)
+    pipe = DevicePipeline(store, DEFAULT_NTL_MEAN, DEFAULT_NTL_STD, 128,
+                          torch.bfloat16, torch.device("cuda"))
+    batch = pipe.batch(ds, list(range(8)))
+    sup = torch.eye(67, device="cuda")[None]
+    var = weights.init_variables(ModelConfig(), 7, 67, seed=3)
+
+    def one_step(dtype: str, plain: bool):
+        cfg = ModelConfig(compute_dtype=dtype, pool="pallas")
+        model = weights.load_variables(build_model(cfg, 7, 67, 128, pool_reference=plain), var)
+        model.cuda()
+        m = make_train_step(model)(create_train_state(model), batch, sup, 1e-3, 0)
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).float().cpu()
+                 for k, p in model.named_parameters()}
+        stats = {k: b.float().cpu() for k, b in model.named_buffers()}
+        return float(m["loss"]), grads, stats
+
+    torch.backends.cudnn.deterministic = True
+    failures = []
+    try:
+        runs = {(dt, plain): one_step(dt, plain)
+                for dt in ("float32", "bfloat16") for plain in (False, True)}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lk, gk, sk), (lp, gp, sp) = runs[("float32", False)], runs[("float32", True)]
+    g_all = max(float(v.abs().max()) for v in gp.values())
+    worst_g = max(float((gk[k] - gp[k]).abs().max()) / max(float(gp[k].abs().max()), 1e-3 * g_all)
+                  for k in gp)
+    worst_s = max(float(((sk[k] - sp[k]).abs() / sp[k].abs().clamp(min=1e-6)).max()) for k in sp)
+    ok = abs(lk - lp) <= STEP_RTOL * abs(lp) and worst_g <= STEP_RTOL and worst_s <= STEP_RTOL
+    log(f"phase 5b: float32 B=8 step, kernels vs plain pool: loss {lk!r} vs {lp!r}, "
+        f"worst grad leaf rel {worst_g:.3g}, worst BN stat rel {worst_s:.3g}, ok {ok}")
+    if not ok:
+        failures.append("float32 step")
+    # bf16: held to the plain bf16 step's own error against the f32 plain step
+    (lb, gb, _), (lpb, gpb, _) = runs[("bfloat16", False)], runs[("bfloat16", True)]
+    tens = lambda v: torch.tensor([v])
+    _, ok_l, note_l = compare(tens(lb), tens(lpb), tens(lp))
+    # leaves with no gradient at all (the frozen Date2Vec, the last Graph
+    # WaveNet layer's residual branch) must stay exactly zero
+    live = [k for k in gpb if gp[k].abs().max() > 0]
+    bad = [k for k in gpb if k not in live and gb[k].abs().max() > 0]
+    bad += [k for k in live if not compare(gb[k], gpb[k], gp[k])[1]]
+    log(f"phase 5b: bfloat16 B=8 step: loss {lb!r} (plain {lpb!r}, float32 {lp!r}) {note_l}; "
+        f"{len(gpb) - len(bad)} of {len(gpb)} grad leaves within the ratio bar")
+    if not ok_l or bad:
+        failures.append(f"bfloat16 step: loss ok {ok_l}, leaves off {bad[:5]}")
+    return failures
+
+
 def main() -> int:
     import torch
 
@@ -288,6 +470,7 @@ def main() -> int:
     from multimodal_outage_tpu_torch.ops import _build
     from multimodal_outage_tpu_torch.ops import double_conv as dcm
     from multimodal_outage_tpu_torch.ops import gwnet_stack as gsm
+    from multimodal_outage_tpu_torch.ops import max_pool as mp
 
     t_start = time.perf_counter()
     smi = smi_line()
@@ -309,18 +492,25 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     dc_rows, f1 = check_double_conv(torch, F, dcm, gen)
     st_rows, f2 = check_gwnet_stack(torch, gsm, weights, ModelConfig(), gen)
-    if f1 or f2:
-        raise RuntimeError("phase 3: kernel disagrees with its plain version:\n" + "\n".join(f1 + f2))
-    log("phase 3: both kernels agree with their plain versions at every shape")
+    mp_rows, f3 = check_max_pool(torch, F, mp, gen)
+    if f1 or f2 or f3:
+        raise RuntimeError("phase 3: kernel disagrees with its plain version:\n"
+                           + "\n".join(f1 + f2 + f3))
+    log("phase 3: every kernel agrees with its plain version at every shape")
 
     with tempfile.TemporaryDirectory() as workdir:
         store_dir, runs, launches = serve_end_to_end(torch, cli, dcm, gsm, workdir)
-        f3 = engine_vs_plain(torch, store_dir)
-    if f3:
-        raise RuntimeError("phase 4: engine disagrees with the plain engine:\n" + "\n".join(f3))
-    for b, out in runs.items():
-        log(f"phase 4: serve B={b} metrics {json.dumps(out['metrics'])} "
-            f"p50 {out['latency']['p50_ms']:.3f} ms p90 {out['latency']['p90_ms']:.3f} ms")
+        f4 = engine_vs_plain(torch, store_dir)
+        if f4:
+            raise RuntimeError("phase 4: engine disagrees with the plain engine:\n" + "\n".join(f4))
+        for b, out in runs.items():
+            log(f"phase 4: serve B={b} metrics {json.dumps(out['metrics'])} "
+                f"p50 {out['latency']['p50_ms']:.3f} ms p90 {out['latency']['p90_ms']:.3f} ms")
+        train_store, _, pool_launches, _ = train_end_to_end(torch, cli, mp, workdir)
+        f5 = step_vs_plain(torch, train_store)
+        if f5:
+            raise RuntimeError("phase 5b: kernel step disagrees with the plain step:\n"
+                               + "\n".join(f5))
 
     main_dc = [r for r in dc_rows if r["dtype"] == "bfloat16"]
     main_st = [r for r in st_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]
@@ -349,8 +539,23 @@ def main() -> int:
             "bound_by": main_st["bound_by"], "library_ms": None,
         },
     ]
-    log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are one B=1 "
-        "forward's calls in bf16 (double_conv: the sum of its 9 shapes)")
+    for i, name in enumerate(("max_pool_fwd", "max_pool_bwd")):
+        rows = [r for r in mp_rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "multimodal_outage_tpu_torch/csrc/max_pool.cu",
+            "replaces": "multimodal_outage_tpu/ops/pool_pallas.py:" + ("163", "191")[i],
+            "launches": pool_launches[i],
+            "max_abs_err": max(r["max_abs_err"] for r in mp_rows if r["kernel"] == name),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": "bytes",
+            "library_ms": sum(r["library_ms"] for r in rows),
+        })
+    log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are bf16: one B=1 "
+        "serving forward's calls (double_conv: the sum of its 9 shapes) and one B=8 "
+        "train step's pools (max_pool: the sum of its 4 shapes)")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,9 +4,12 @@
            package's, so either package reads the other's)
   serve  — sweep a held-out hurricane through the serving engine and print
            the metrics JSON (and per-request latency with --latency_stats)
+  train  — train the fusion model (leave one hurricane out), write metrics
+           and checkpoints under logs/<job_id>, and print the best
+           model's val and test metrics JSON
 
-serve runs on the card unless --device cpu is given; without a card it
-raises rather than falling back.
+serve and train run on the card unless --device cpu is given; without a
+card they raise rather than falling back.
 """
 
 from __future__ import annotations
@@ -53,7 +56,58 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--max_batches", type=int, default=None)
     p.add_argument("--latency_stats", action="store_true",
                    help="also report p50/p90 per-request latency")
+
+    p = sub.add_parser("train", help="Train the fusion model (Graph WaveNet)")
+    p.add_argument("--case", type=str, default="michael", help="held-out hurricane")
+    p.add_argument("--epochs", type=int, default=5)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--job_id", type=str, default="test",
+                   help="run directory logs/<job_id> (metrics, checkpoints)")
+    p.add_argument("--data_dir", type=str, default="data/synthetic")
+    p.add_argument("--dataset_range", type=int, default=30)
+    p.add_argument("--horizon", type=int, default=7)
+    p.add_argument("--image_size", type=int, default=128)
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   choices=("bfloat16", "float32"))
+    p.add_argument("--pool", choices=("reduce_window", "pairwise", "pallas"),
+                   default="reduce_window",
+                   help="2×2 max-pool: F.max_pool2d, strided-slice maximums, "
+                   "or the max-pool kernel pair (ops/max_pool.py)")
+    p.add_argument("--bn_two_pass", action="store_true",
+                   help="two-pass BatchNorm statistics instead of the single sweep")
+    p.add_argument("--device", type=str, default=None, choices=("cuda", "cpu"),
+                   help="default: cuda (raises if there is no card)")
     return parser
+
+
+def train_command(args: argparse.Namespace) -> Dict[str, Any]:
+    """Run `train`; returns the final best-model metrics (train/loop.fit)."""
+    from multimodal_outage_tpu_torch.core.config import (
+        Config,
+        DataConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from multimodal_outage_tpu_torch.core.device import resolve_device
+    from multimodal_outage_tpu_torch.train.loop import fit
+
+    device = resolve_device(args.device)  # fail before any work
+    cfg = Config(
+        data=DataConfig(
+            data_dir=args.data_dir, horizon=args.horizon,
+            dataset_range=args.dataset_range, image_size=args.image_size,
+        ),
+        model=ModelConfig(
+            compute_dtype=args.compute_dtype, pool=args.pool,
+            bn_single_pass=not args.bn_two_pass,
+        ),
+        train=TrainConfig(
+            epochs=args.epochs, batch_size=args.batch_size, seed=args.seed,
+            job_id=args.job_id,
+        ),
+    )
+    return fit(cfg, test_case=args.case, device=device)
 
 
 def serve_command(args: argparse.Namespace) -> Dict[str, Any]:
@@ -114,6 +168,8 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         )
         return {"out_dir": args.out_dir, "frames": list(frames.shape),
                 "dates": int(dates.shape[0])}
+    if args.command == "train":
+        return train_command(args)
     return serve_command(args)
 
 

@@ -1,0 +1,96 @@
+"""Checkpoints of the port, in torch format (the JAX package's
+core/checkpoint.py keeps the same retention with orbax; importing its
+orbax checkpoints is a ROADMAP item).
+
+Two stores under the checkpoint directory, each a directory of
+<step>.pt files written with torch.save:
+  best/    the top-k steps by val_loss (min), for the end-of-fit sweeps
+  latest/  the most recent step (resuming from it is a ROADMAP item)
+A tree is nested dicts of tensors and Python numbers; tensors are saved
+from the CPU.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional
+
+import torch
+
+
+def _to_cpu(tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if torch.is_tensor(tree):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+class CheckpointManager:
+    """Best-k retention keyed on val_loss (min) plus a latest-step store
+    (JAX core/checkpoint.py:33-110)."""
+
+    def __init__(self, directory: str, keep_top_k: int = 1):
+        self._dir = os.path.abspath(directory)
+        self._best = os.path.join(self._dir, "best")
+        self._latest = os.path.join(self._dir, "latest")
+        os.makedirs(self._best, exist_ok=True)
+        os.makedirs(self._latest, exist_ok=True)
+        self._keep = keep_top_k
+        self._index = os.path.join(self._best, "metrics.json")
+
+    def _metrics(self) -> Dict[int, float]:
+        if not os.path.exists(self._index):
+            return {}
+        with open(self._index) as f:
+            return {int(k): v for k, v in json.load(f).items()}
+
+    @staticmethod
+    def _steps(d: str):
+        return sorted(int(f[:-3]) for f in os.listdir(d) if f.endswith(".pt"))
+
+    def save(self, step: int, tree: Any, metrics: dict) -> None:
+        tree = _to_cpu(tree)
+        # write-then-rename: a reader never sees a partial file
+        for d in (self._best, self._latest):
+            tmp = os.path.join(d, f".{step}.pt.tmp")
+            torch.save(tree, tmp)
+            os.replace(tmp, os.path.join(d, f"{step}.pt"))
+        for old in self._steps(self._latest):
+            if old != step:
+                os.unlink(os.path.join(self._latest, f"{old}.pt"))
+        scores = self._metrics()
+        scores[step] = float(metrics["val_loss"])
+        keep = sorted(scores, key=lambda s: (scores[s], s))[: self._keep]
+        for s in list(scores):
+            if s not in keep:
+                del scores[s]
+                path = os.path.join(self._best, f"{s}.pt")
+                if os.path.exists(path):
+                    os.unlink(path)
+        with open(self._index, "w") as f:
+            json.dump({str(k): v for k, v in scores.items()}, f)
+
+    @property
+    def best_step(self) -> Optional[int]:
+        scores = self._metrics()
+        return min(scores, key=lambda s: (scores[s], s)) if scores else None
+
+    def latest_step(self) -> Optional[int]:
+        steps = self._steps(self._latest)
+        return steps[-1] if steps else None
+
+    def restore(self, step: Optional[int] = None) -> Any:
+        """The best checkpoint, or an explicit step from either store."""
+        if step is None:
+            step = self.best_step
+            if step is None:
+                step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self._dir}")
+        for d in (self._best, self._latest):
+            path = os.path.join(d, f"{step}.pt")
+            if os.path.exists(path):
+                return torch.load(path, map_location="cpu", weights_only=True)
+        raise FileNotFoundError(f"no checkpoint of step {step} in {self._dir}")

@@ -1,9 +1,9 @@
 """Typed configuration: the port's own copy of the JAX package's config
-dataclasses (same fields, same defaults), minus the train/mesh configs
-that later slices bring."""
+dataclasses (same fields, same defaults)."""
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -104,3 +104,63 @@ class ModelConfig:
     @property
     def st_gnn_in_dim(self) -> int:
         return self.feature_vector_size + self.time_embed_size
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """The JAX TrainConfig's fields and defaults (JAX core/config.py:171-212).
+    train/loop.py:fit raises on the knobs the port does not run yet
+    (grad_accum ≠ 1, resume, tensorboard, profile_dir, debug_nans);
+    donate_buffers and xla_vmem_limit_kib are XLA settings that the port
+    keeps for the config record and does not read."""
+
+    epochs: int = 5  # reference lit.py:211
+    batch_size: int = 16  # reference lit.py:213
+    lr: float = 1e-3  # reference lit.py:60
+    cosine_t_max: int = 10  # reference lit.py:61
+    early_stop_patience: int = 10  # reference lit.py:181
+    seed: int = 42  # reference lit.py:14
+    log_every: int = 6  # reference lit.py:204
+    checkpoint_dir: str = "logs"
+    job_id: str = "test"
+    keep_top_k: int = 1  # reference lit.py:194 save_top_k=1
+    donate_buffers: bool = True
+    grad_accum: int = 1
+    xla_vmem_limit_kib: int = 49152
+    resume: bool = False
+    tensorboard: bool = False
+    debug_nans: bool = False
+    profile_dir: Optional[str] = None
+    profile_steps: int = 5
+
+    def __post_init__(self):
+        if self.grad_accum < 0:
+            raise ValueError(
+                f"grad_accum must be >= 1, or 0 for auto; got {self.grad_accum}"
+            )
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh axes (JAX core/config.py:215-222); the port runs one
+    device, so only the single-device settings are accepted by fit."""
+
+    data: int = -1
+    model: int = 1
+    time: int = 1
+
+
+@dataclass(frozen=True)
+class Config:
+    data: DataConfig = field(default_factory=DataConfig)
+    model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    adjacency_csv: Optional[str] = None  # None ⇒ packaged Florida asset
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def asdict(cfg) -> dict:
+    return dataclasses.asdict(cfg)

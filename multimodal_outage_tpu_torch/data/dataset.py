@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import datetime
 from dataclasses import dataclass
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -83,9 +83,23 @@ class WindowDataset:
         return date_features(dates).reshape(len(batch_idx), self.horizon, 6)
 
 
-def batch_indices(n: int, batch_size: int) -> Iterator[np.ndarray]:
-    """In-order index batches; the last one may be ragged (evaluation
-    sweeps never shuffle or drop)."""
-    order = np.arange(n)
-    for s in range(0, n, batch_size):
+def train_val_split(n: int, val_fraction: float, seed: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Deterministic random split, the JAX package's (data/dataset.py:140-148;
+    reference lit.py:161-163): (sorted train positions, sorted val
+    positions)."""
+    n_val = int(n * val_fraction)
+    perm = np.random.default_rng(seed).permutation(n)
+    return np.sort(perm[n_val:]), np.sort(perm[:n_val])
+
+
+def batch_indices(
+    n: int, batch_size: int, shuffle: bool = False, seed: int = 0,
+    drop_last: bool = False,
+) -> Iterator[np.ndarray]:
+    """Index batches, the JAX package's (data/dataset.py:151-164): in order,
+    or a numpy permutation from `seed` when shuffle=True; the last batch
+    may be ragged unless drop_last."""
+    order = np.random.default_rng(seed).permutation(n) if shuffle else np.arange(n)
+    end = (n // batch_size) * batch_size if drop_last else n
+    for s in range(0, end, batch_size):
         yield order[s : s + batch_size]

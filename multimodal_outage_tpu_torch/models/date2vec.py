@@ -2,7 +2,8 @@
 
 encode(x) = concat([fc1(x), sin(fc2(x))], -1), always in float32: the raw
 year (~2022) quantizes to multiples of 8 in bf16, so only the O(1)
-embedding joins the compute-dtype stream (JAX serving.py:377-388).
+embedding joins the compute-dtype stream (JAX serving.py:377-388,
+models/fusion.py:141-156).
 """
 
 from __future__ import annotations
@@ -10,6 +11,9 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+import torch.nn as nn
+
+from multimodal_outage_tpu_torch.models.layers import Dense
 
 
 def encode(date_feats: torch.Tensor, params: Dict[str, Dict[str, torch.Tensor]]) -> torch.Tensor:
@@ -25,3 +29,22 @@ def encode(date_feats: torch.Tensor, params: Dict[str, Dict[str, torch.Tensor]])
         ],
         dim=-1,
     )
+
+
+class Date2Vec(nn.Module):
+    """The embedding as a module of the trainable model, float32. Frozen
+    unless `trainable` (the JAX package's stop_gradient when
+    train_date2vec is off): its parameters then take no gradient and no
+    optimizer step changes them."""
+
+    def __init__(self, k: int = 64, trainable: bool = False):
+        super().__init__()
+        self.fc1 = Dense(6, k // 2)
+        self.fc2 = Dense(6, k // 2 + k % 2)
+        self.requires_grad_(trainable)
+
+    def forward(self, date_feats: torch.Tensor) -> torch.Tensor:
+        return encode(date_feats, {
+            "fc1": {"kernel": self.fc1.kernel, "bias": self.fc1.bias},
+            "fc2": {"kernel": self.fc2.kernel, "bias": self.fc2.bias},
+        })

@@ -1,0 +1,99 @@
+"""ModifiedUNet, the trainable fusion model (JAX models/fusion.py): U-Net
+contraction → bottleneck encoder → (‖ Date2Vec) → Graph WaveNet →
+bottleneck decoder → U-Net expansion, over [B, N, T, H, W, C].
+
+Parameters sit under the JAX variable tree's key paths and in its
+layouts (weights.module_variables / load_variables), so gradients,
+checkpoints and init_variables trees are the same tree as the JAX
+package's. They are float32 masters, cast to cfg.compute_dtype in the
+forward.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from multimodal_outage_tpu_torch.core.config import ModelConfig
+from multimodal_outage_tpu_torch.data.adjacency import n_static_supports
+from multimodal_outage_tpu_torch.models.date2vec import Date2Vec
+from multimodal_outage_tpu_torch.models.gwnet import GraphWaveNet
+from multimodal_outage_tpu_torch.models.unet import (
+    BottleneckDecoder,
+    BottleneckEncoder,
+    Contraction,
+    Expansion,
+)
+
+
+class ModifiedUNet(nn.Module):
+    """pool_reference=True runs the pallas pool's plain versions instead of
+    its kernels, on any device (the step a kernel step is held against)."""
+
+    def __init__(self, cfg: ModelConfig, horizon: int, n_counties: int,
+                 image_size: int = 128, pool_reference: bool = False):
+        super().__init__()
+        if cfg.st_gnn != "gwnet":
+            raise NotImplementedError(
+                f"st_gnn={cfg.st_gnn!r}: the port trains Graph WaveNet only; "
+                "DCRNN comes with the ROADMAP item 'DCRNN + kernel 5'"
+            )
+        self.cfg, self.horizon = cfg, horizon
+        self.dtype = dtype = getattr(torch, cfg.compute_dtype)
+        sp = cfg.bn_single_pass
+        top = cfg.base_channels * 2**cfg.depth
+        grid = image_size // 2**cfg.depth
+        self.contraction = Contraction(
+            cfg.input_channels, cfg.base_channels, cfg.depth, cfg.remat, sp,
+            cfg.pool, dtype, pool_reference,
+        )
+        self.encoder = BottleneckEncoder(
+            grid * grid * top, cfg.feature_vector_size, cfg.compression_factor,
+            cfg.encoder_dropout, dtype,
+        )
+        self.date2vec = Date2Vec(cfg.time_embed_size, trainable=cfg.train_date2vec)
+        self.st_gnn = GraphWaveNet(cfg, n_counties, n_static_supports(cfg.gwnet.adjtype), dtype)
+        self.decoder = BottleneckDecoder(
+            grid, top, cfg.feature_vector_size, cfg.compression_factor,
+            cfg.encoder_dropout, dtype,
+        )
+        self.expansion = Expansion(
+            cfg.output_channels, cfg.base_channels, cfg.depth, cfg.remat, sp, dtype,
+        )
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, N, T, H, W, C_in] normalized NTL
+        date_feats: torch.Tensor,  # [B, T, 6] raw (0,0,0,y,m,d)
+        supports: Optional[torch.Tensor],  # [S, N, N] static GCN supports
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,  # dropout masks
+        sample_weight=None,
+    ) -> torch.Tensor:
+        if sample_weight is not None:
+            raise NotImplementedError(
+                "sample_weight only exists on the mesh path; it comes with "
+                "the ROADMAP item 'SPMD with sample_weight'"
+            )
+        b, n, t = x.shape[:3]
+        dt = self.dtype
+        bottleneck, skips = self.contraction(x.to(dt), train)
+        z = self.encoder(bottleneck, train, generator)
+        te = self.date2vec(date_feats.to(x.device)).to(dt)
+        te = te[:, None].expand(b, n, t, te.shape[-1])
+        z = torch.cat([z, te], dim=-1)  # [B, N, T, 320]
+        if supports is not None:
+            supports = torch.as_tensor(supports, device=x.device)
+        z = self.st_gnn(z, supports, train, generator)
+        d = self.decoder(z, train, generator)
+        return self.expansion(d, skips, train).float()
+
+
+def build_model(cfg: ModelConfig, horizon: int, n_counties: int, image_size: int = 128,
+                pool_reference: bool = False) -> ModifiedUNet:
+    """The module with zero parameters; fill it with
+    weights.load_variables (from init_variables, a checkpoint or the JAX
+    package's tree)."""
+    return ModifiedUNet(cfg, horizon, n_counties, image_size, pool_reference)

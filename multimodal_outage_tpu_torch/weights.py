@@ -4,9 +4,11 @@ The port keeps the flax tree as it is — {"params", "batch_stats"} nested
 by module name, with the same key paths — and the flax layouts: Dense
 kernels [in, out] (used as x @ W), conv kernels HWIO (the NHWC DoubleConv
 kernel reads them as they are). Only the ConvTranspose kernel changes
-layout, where the serving engine hands it to F.conv_transpose2d
-(conv_transpose_weight). Loading orbax checkpoints waits for the
-checkpoint slice of the port (ROADMAP).
+layout, where it is handed to F.conv_transpose2d (conv_transpose_weight).
+The trainable model's parameters and buffers sit under the same paths
+(module_variables / load_variables), so a trained module feeds the
+serving engine or a checkpoint as it is. Loading orbax checkpoints is a
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -64,6 +66,44 @@ def unflatten(flat: Dict[str, Any]) -> Tree:
             node = node.setdefault(p, {})
         node[leaf] = v
     return tree
+
+
+def module_variables(module: torch.nn.Module) -> Tree:
+    """A module's {"params", "batch_stats"} tree: parameters and buffers
+    under their flax key paths (module attribute names joined by "/").
+    The leaves are the module's own tensors, detached, not copies; the
+    tree feeds ServingModel or a checkpoint as it is."""
+    return {
+        "params": unflatten(
+            {k.replace(".", "/"): v.detach() for k, v in module.named_parameters()}
+        ),
+        "batch_stats": unflatten(
+            {k.replace(".", "/"): v.detach() for k, v in module.named_buffers()}
+        ),
+    }
+
+
+def load_variables(module: torch.nn.Module, variables: Tree) -> torch.nn.Module:
+    """Copy a {"params", "batch_stats"} tree (flax key paths, any array
+    type) into a module's parameters and buffers, on their device and in
+    their dtype. Every leaf must match one tensor of the module by path
+    and shape, and every tensor must be given."""
+    want = {**dict(module.named_parameters()), **dict(module.named_buffers())}
+    want = {k.replace(".", "/"): v for k, v in want.items()}
+    given = {
+        **flatten(variables.get("params", {})), **flatten(variables.get("batch_stats", {})),
+    }
+    missing, extra = sorted(set(want) - set(given)), sorted(set(given) - set(want))
+    if missing or extra:
+        raise ValueError(f"variable tree does not match the module: missing {missing}, extra {extra}")
+    with torch.no_grad():
+        for path, dst in want.items():
+            src = given[path]
+            src = src if torch.is_tensor(src) else torch.from_numpy(np.array(src, np.float32))
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{path}: shape {tuple(src.shape)} given, {tuple(dst.shape)} wanted")
+            dst.copy_(src.to(dst.device, dst.dtype))
+    return module
 
 
 def save_npz(path: str, variables: Tree) -> None:

@@ -20,6 +20,7 @@ from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
 from multimodal_outage_tpu_torch.data.adjacency import n_static_supports
 from multimodal_outage_tpu_torch.ops import double_conv as dcm
 from multimodal_outage_tpu_torch.ops import gwnet_stack as gsm
+from multimodal_outage_tpu_torch.ops import max_pool as mp
 from multimodal_outage_tpu_torch.serving import ServingModel
 
 
@@ -159,6 +160,57 @@ def test_wrappers_reject_bad_inputs(cuda):
         gsm.gwnet_stack_forward(x, sup.to(torch.bfloat16), sp)
 
 
+# (H, C) of the four U-Net pools at full width (W·C = 512 at each), plus
+# narrow pixels that take the 8- and 4-byte accesses
+POOL_SHAPES = [(128, 4), (64, 8), (32, 16), (16, 32), (12, 2), (6, 6)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,c", POOL_SHAPES)
+def test_max_pool_kernels_match_plain(cuda, dtype, h, c):
+    """Exact equality: both only copy values. ReLU'd inputs tie often."""
+    m = 8 * 67 * 7 if h >= 16 else 5  # the images of a B=8 train step
+    gen = torch.Generator(device="cuda").manual_seed(h + c)
+    x = torch.relu(torch.randn(m, h, h, c, generator=gen, device=cuda)).to(dtype)
+    g = torch.randn(m, h // 2, h // 2, c, generator=gen, device=cuda).to(dtype)
+    before = (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+    y = mp.max_pool_forward(x)
+    dx = mp.max_pool_backward(x, g)
+    torch.cuda.synchronize()
+    assert (mp.max_pool_forward.launches - before[0], mp.max_pool_backward.launches - before[1]) == (1, 1)
+    assert torch.equal(y, mp.max_pool_reference(x))
+    assert torch.equal(dx, mp.max_pool_backward_reference(x, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_max_pool_kernel_tie_routing(cuda, dtype):
+    """[[0,5],[5,0]] routes to (1,0) and an all-equal window to (0,0), as
+    the JAX kernel routes them; autograd goes through both kernels."""
+    x = torch.zeros(1, 2, 64, 2)
+    x[0, :, 0:2, :] = torch.tensor([[0.0, 5.0], [5.0, 0.0]])[:, :, None]
+    x[0, :, 2:4, :] = 7.0
+    x = x.to(cuda, dtype).requires_grad_()
+    mp.max_pool_2x2_pallas(x).backward(torch.full((1, 1, 32, 2), 3.0, device=cuda, dtype=dtype))
+    dx = x.grad.float().cpu()
+    assert dx[0, 1, 0, 0] == 3.0 and dx[0, 0, 1, 0] == 0.0 and dx[0, 0, 0, 0] == 0.0
+    assert dx[0, 0, 2, 0] == 3.0 and dx[0, :, 2:4, 0].sum() == 3.0
+
+
+@pytest.mark.cuda
+def test_max_pool_wrappers_reject_bad_inputs(cuda):
+    x = torch.zeros(2, 8, 8, 4, device=cuda)
+    with pytest.raises(TypeError):
+        mp.max_pool_forward(x.half())
+    with pytest.raises(ValueError):  # odd H
+        mp.max_pool_forward(x[:, :7])
+    with pytest.raises(ValueError):  # not contiguous
+        mp.max_pool_forward(x.transpose(1, 2))
+    with pytest.raises(ValueError):  # cotangent of the wrong shape
+        mp.max_pool_backward(x, torch.zeros(2, 4, 4, 2, device=cuda))
+
+
 def test_wrappers_reject_other_devices():
     """Only CPU tensors take the plain version; any other device that is
     not CUDA raises instead of being served by it."""
@@ -168,3 +220,8 @@ def test_wrappers_reject_other_devices():
     x, sup, sp = _stack_inputs(ModelConfig(gwnet=SMALL), 7, 1, 2, torch.float32, "cpu")
     with pytest.raises(ValueError, match="device"):
         gsm.gwnet_stack_forward(x.to("meta"), sup, sp)
+    with pytest.raises(ValueError, match="device"):
+        mp.max_pool_forward(torch.zeros(1, 4, 4, 4, device="meta"))
+    with pytest.raises(ValueError, match="device"):
+        mp.max_pool_backward(torch.zeros(1, 4, 4, 4, device="meta"),
+                             torch.zeros(1, 2, 2, 4, device="meta"))

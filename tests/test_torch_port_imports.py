@@ -35,6 +35,10 @@ def test_port_imports_no_jax_in_fresh_interpreter():
     mods = _port_modules()
     assert "multimodal_outage_tpu_torch.serving" in mods
     assert "multimodal_outage_tpu_torch.ops.double_conv" in mods
+    for m in ("ops.max_pool", "models.layers", "models.unet", "models.fusion",
+              "train.state", "train.steps", "train.loop", "core.checkpoint",
+              "core.run_logging"):
+        assert f"multimodal_outage_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

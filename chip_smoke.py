@@ -3,8 +3,10 @@
 one NVIDIA card: builds the hand-written kernels from csrc/, holds each
 against its plain PyTorch version at every shape the serving and training
 paths give it, serves a held-out hurricane end to end at full width
-through the CLI's code path, trains one epoch at full width through the
-CLI's code path, and checks that each path went through its kernels.
+through the CLI's code path with Graph WaveNet and with DCRNN, trains one
+epoch at full width through the CLI's code path and one through `fit`
+with the per-layer Graph WaveNet kernel, and checks that each path went
+through its kernels.
 
     python3 chip_smoke.py
 
@@ -12,8 +14,8 @@ Exits non-zero on any failure, and when no CUDA card is present. The last
 line of standard output is the JSON object
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 the line before it is {"kernels": [...]}, one entry per kernel with its
-launches on the serving run, error against the plain version, and times.
-Imports nothing of JAX.
+launches on the run of its path, error against the plain version, and
+times. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -61,6 +63,9 @@ TRAIN_MARGIN = 16
 # gradient of all, for leaves whose true gradient is 0 and whose entries
 # are summation noise)
 STEP_RTOL = 1e-5
+# phase 3d: batch sizes of the per-layer Graph WaveNet kernel: a B=1
+# request, a B=8 train step, a B=16 request
+LAYER_BATCHES = (1, 8, 16)
 
 
 def log(*a):
@@ -208,6 +213,212 @@ def check_gwnet_stack(torch, gsm, weights, cfg, gen):
     return rows, failures
 
 
+def bound(nbytes: int, nops: int, dtype_name: str):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of the dtype."""
+    t_bytes, t_ops = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * nops / PEAK_OPS[dtype_name]
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_gwnet_layer(torch, glm, gsm, weights, cfg, gen):
+    """Phase 3d: the per-layer Graph WaveNet kernel at B = 1, 8, 16, T=7,
+    N=67, C=Cd=32, Cs=256, order 2, S=2 (identity + the softmax adaptive
+    adjacency), bf16 and float32; and at B=8 in float32 the gradients
+    through fused_gwnet_layer (supports included) against autograd of the
+    plain version."""
+    rows, failures = [], []
+    st = weights.init_variables(cfg, 7, 67, seed=1)["params"]["st_gnn"]
+    names = [f"{k}0_{p}" for k in ("filter_conv", "gate_conv", "skip_conv", "gconv")
+             for p in ("kernel", "bias")]
+    order = cfg.gwnet.order
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        w = [st[k].to("cuda", dtype).contiguous() for k in names]
+        sup = gsm.adaptive_supports(torch.eye(67, device="cuda")[None], st["nodevec1"].cuda(),
+                                    st["nodevec2"].cuda(), dtype)
+        for b in LAYER_BATCHES:
+            x = torch.randn(b, 67, 7, 32, generator=gen, device="cuda").to(dtype)
+            args = (x, sup, *w)
+            got = glm.gwnet_layer_forward(*args, order=order)
+            want = glm.gwnet_layer_reference(*args, order=order)
+            truth = (None,) * 2
+            if dtype != torch.float32:
+                truth = glm.gwnet_layer_reference(*(a.float() for a in args), order=order)
+            torch.cuda.synchronize()
+            checks = [compare(g, wt, tr) for g, wt, tr in zip(got, want, truth)]
+            err, ok = max(c[0] for c in checks), all(c[1] for c in checks)
+            nbytes = glm.min_bytes(x, sup, *w, cs=256)
+            nops = glm.flops(b, 67, 7, 32, 32, 256, sup.shape[0], order)
+            bound_ms, bound_by = bound(nbytes, nops, dn)
+            row = {
+                "dtype": dn, "B": b, "max_abs_err": err, "ok": ok,
+                "check": "; ".join(c[2] for c in checks if c[2]),
+                "ms": cuda_ms(lambda: glm.gwnet_layer_forward(*args, order=order), 50),
+                "plain_ms": cuda_ms(lambda: glm.gwnet_layer_reference(*args, order=order), 10),
+                "library_ms": None, "bytes": nbytes, "flop": nops, "bound_ms": bound_ms,
+                "bound_by": bound_by,
+            }
+            log("gwnet_layer", json.dumps(row))
+            rows.append(row)
+            if not ok:
+                failures.append(f"gwnet_layer {dn} B={b}: max err {err}")
+    # gradients, float32, B=8
+    w = [st[k].cuda().contiguous() for k in names]
+    sup = gsm.adaptive_supports(torch.eye(67, device="cuda")[None], st["nodevec1"].cuda(),
+                                st["nodevec2"].cuda())
+    x = torch.randn(8, 67, 7, 32, generator=gen, device="cuda")
+    cot = (torch.randn(8, 67, 7, 32, generator=gen, device="cuda"),
+           torch.randn(8, 67, 7, 256, generator=gen, device="cuda"))
+    grads = []
+    for fn in (glm.fused_gwnet_layer, glm.gwnet_layer_reference):
+        leaves = [a.clone().requires_grad_() for a in (x, sup, *w)]
+        torch.autograd.backward(fn(*leaves, order=order), cot)
+        grads.append([v.grad for v in leaves])
+    torch.cuda.synchronize()
+    worst = max(float((g - r).abs().max()) / (float(r.abs().max()) + 1e-30) for g, r in zip(*grads))
+    ok = all(compare(g, r)[1] for g, r in zip(*grads)) and float(grads[0][1].abs().max()) > 0
+    log(f"phase 3d: float32 B=8 gradients through the kernel vs autograd of the plain "
+        f"version: worst leaf max|Δ|/max|g| {worst:.3g} (x, supports, 8 weights), ok {ok}")
+    if not ok:
+        failures.append(f"gwnet_layer gradients: worst {worst}")
+    return rows, failures
+
+
+def check_dcrnn_stack(torch, dsm, weights, gen):
+    """Phase 3e: the DCRNN kernel at full width (2 DCGRU layers, 64
+    units, diffusion order 2, S=2 dual-random-walk supports of the
+    Florida graph, input 320, output 256, T = horizon = 7) at B = 1 and
+    16, bf16 and float32, beside the plain version and the DCRNN module
+    (models/dcrnn.py) in eval at the same B."""
+    from multimodal_outage_tpu_torch.core.config import ModelConfig
+    from multimodal_outage_tpu_torch.data.adjacency import model_supports
+    from multimodal_outage_tpu_torch.models.dcrnn import DCRNN
+
+    rows, failures = [], []
+    cfg = ModelConfig(st_gnn="dcrnn")
+    d = cfg.dcrnn
+    st = weights.init_variables(cfg, 7, 67, seed=1)["params"]["st_gnn"]
+    arch = dict(num_rnn_layers=d.num_rnn_layers, max_diffusion_step=d.max_diffusion_step,
+                rnn_units=d.rnn_units)
+    kw = dict(horizon=7, **arch)
+    sup32 = torch.from_numpy(model_supports(cfg, 67)).cuda()
+    sp_raw = dsm.dcrnn_stack_params(st, n_supports=sup32.shape[0], input_dim=cfg.st_gnn_in_dim,
+                                    output_dim=cfg.feature_vector_size, **arch)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        sp = dsm.stack_params_to(sp_raw, "cuda", dtype)
+        sup = sup32.to(dtype).contiguous()
+        module = DCRNN(cfg.st_gnn_in_dim, cfg.feature_vector_size, n_supports=sup.shape[0],
+                       dtype=dtype, **kw)
+        weights.load_variables(module, {"params": st})
+        module.cuda().eval()
+        for b in (1, 16):
+            x = torch.randn(b, 67, 7, cfg.st_gnn_in_dim, generator=gen, device="cuda").to(dtype)
+            got = dsm.dcrnn_stack_forward(x, sup, sp, **kw)
+            want = dsm.stack_forward_reference(x, sup, sp, **kw)
+            truth = None
+            if dtype != torch.float32:
+                truth = dsm.stack_forward_reference(
+                    x.float(), sup.float(), dsm.stack_params_to(sp, "cuda", torch.float32), **kw)
+            torch.cuda.synchronize()
+            err, ok, note = compare(got, want, truth)
+            with torch.inference_mode():
+                t_m = cuda_ms(lambda: module(x, sup), 3)
+            nbytes = dsm.min_bytes(x, sup, sp, 7)
+            nops = dsm.flops(b, 67, 7, 7, cfg.st_gnn_in_dim, cfg.feature_vector_size,
+                             d.rnn_units, d.num_rnn_layers, sup.shape[0], d.max_diffusion_step)
+            bound_ms, bound_by = bound(nbytes, nops, dn)
+            row = {
+                "dtype": dn, "B": b, "max_abs_err": err, "ok": ok, "check": note,
+                "ms": cuda_ms(lambda: dsm.dcrnn_stack_forward(x, sup, sp, **kw), 5),
+                "plain_ms": cuda_ms(lambda: dsm.stack_forward_reference(x, sup, sp, **kw), 3),
+                "module_ms": t_m, "library_ms": None, "bytes": nbytes, "flop": nops,
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            log("dcrnn_stack", json.dumps(row))
+            rows.append(row)
+            if not ok:
+                failures.append(f"dcrnn_stack {dn} B={b}: max err {err} {note}")
+    return rows, failures
+
+
+def serve_dcrnn_end_to_end(torch, cli, dcm, dsm, gsm, store_dir):
+    """Phase 4c: `serve --st_gnn dcrnn` at B=1 and B=16, full width,
+    through the CLI's code path; the launch counters are set to 0 just
+    before and read just after each run."""
+    common = ["serve", "--st_gnn", "dcrnn", "--data_dir", store_dir, "--case", "michael",
+              "--dataset_range", "24", "--seed", "0", "--latency_stats"]
+    counters = (dcm.fused_double_conv, dsm.dcrnn_stack_forward, gsm.gwnet_stack_forward)
+    runs, n_dcrnn = {}, 0
+    for b, k in ((1, 3), (16, 2)):
+        for c in counters:
+            c.launches = 0
+        out = cli.run(common + ["--batch_size", str(b), "--max_batches", str(k)])
+        torch.cuda.synchronize()
+        grew = tuple(c.launches for c in counters)
+        f = out["forwards"]
+        log(f"serve --st_gnn dcrnn B={b}: {json.dumps(out)} launches (double_conv, "
+            f"dcrnn_stack, gwnet_stack) {grew}")
+        if grew != (9 * f, f, 0):
+            raise RuntimeError(f"serve dcrnn B={b}: {f} forwards launched {grew}, "
+                               f"expected {(9 * f, f, 0)}")
+        if not all(math.isfinite(v) for v in (*out["metrics"].values(), *out["latency"].values())):
+            raise RuntimeError(f"serve dcrnn B={b}: non-finite metrics {out}")
+        runs[b] = out
+        n_dcrnn += grew[1]
+    return runs, n_dcrnn
+
+
+def train_gwnet_layer_end_to_end(torch, glm, mp, train_store, workdir):
+    """Phase 6: one epoch of `fit` at full width (bf16, B=8) with
+    GWNetConfig(use_pallas=True) and pool="pallas": every Graph WaveNet
+    layer of every train step and eval forward goes through the per-layer
+    kernel; the launch counters are set to 0 just before fit and read
+    just after."""
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.checkpoint import CheckpointManager
+    from multimodal_outage_tpu_torch.core.config import (
+        Config,
+        DataConfig,
+        GWNetConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from multimodal_outage_tpu_torch.train.loop import fit
+
+    model = ModelConfig(pool="pallas", gwnet=GWNetConfig(use_pallas=True))
+    cfg = Config(
+        data=DataConfig(data_dir=train_store, horizon=7, dataset_range=TRAIN_MARGIN),
+        model=model, train=TrainConfig(epochs=1, batch_size=8, seed=0, job_id="smoke_layer"),
+    )
+    run_dir = os.path.join(workdir, "logs", "smoke_layer")
+    for c in (glm.gwnet_layer_forward, mp.max_pool_forward, mp.max_pool_backward):
+        c.launches = 0
+    out = fit(cfg, test_case="michael", run_dir=run_dir, progress=False, device="cuda")
+    torch.cuda.synchronize()
+    layer = glm.gwnet_layer_forward.launches
+    pool = (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+    steps, evals = out["train_steps"], out["eval_forwards"]
+    log(f"phase 6: fit use_pallas {json.dumps(out)}")
+    want = (8 * (steps + evals), (4 * steps + 4 * evals, 4 * steps))
+    log(f"phase 6: {steps} train steps, {evals} eval forwards: gwnet_layer launches {layer}, "
+        f"pool (fwd, bwd) {pool}, expected {want}")
+    if steps < 2 or (layer, pool) != want:
+        raise RuntimeError(f"phase 6: launches {(layer, pool)}, expected {want}")
+    finals = [v for k, v in out.items() if k.startswith(("val_", "test_"))]
+    if len(finals) != 8 or not all(math.isfinite(v) for v in finals):
+        raise RuntimeError(f"phase 6: non-finite or missing final metrics {out}")
+    tree = CheckpointManager(os.path.join(run_dir, "checkpoints")).restore()
+    init = weights.init_variables(model, 7, 67, seed=0)["params"]["st_gnn"]
+    moved = {k: float((tree["params"]["st_gnn"][k] - init[k]).abs().max())
+             for k in ("nodevec1", "nodevec2")}
+    log(f"phase 6: node embeddings moved from their init by max |Δ| {moved}; train step "
+        f"p50 {out['train_step_ms_p50']:.3f} ms (CUDA events, B=8 bf16, after the first step)")
+    if not all(v > 0 for v in moved.values()):
+        raise RuntimeError(f"phase 6: the node embeddings did not move: {moved}")
+    return out, layer
+
+
 def serve_end_to_end(torch, cli, dcm, gsm, workdir):
     """Phase 4: serve B=1 and B=16 requests at full width through the CLI's
     code path; the launch counters are read around exactly that run."""
@@ -243,17 +454,18 @@ def serve_end_to_end(torch, cli, dcm, gsm, workdir):
     return store_dir, runs, launches
 
 
-def engine_vs_plain(torch, store_dir):
-    """Phase 4b: one full-width B=16 batch through the kernel engine and
-    through the same engine on the plain versions, on the card, in bf16
-    and float32."""
+def engine_vs_plain(torch, store_dir, st_gnn="gwnet", **engine_kw):
+    """Phases 4b and 4d: one full-width B=16 batch through a kernel engine
+    and through the same engine on the plain versions, on the card, in
+    bf16 and float32. engine_kw picks the st-GNN path (ServingModel's
+    gwnet_stack / gwnet_pallas / dcrnn_stack)."""
     from multimodal_outage_tpu_torch.core.config import (
         DEFAULT_NTL_MEAN,
         DEFAULT_NTL_STD,
         ModelConfig,
     )
     from multimodal_outage_tpu_torch.core.registry import HURRICANES
-    from multimodal_outage_tpu_torch.data.adjacency import static_supports
+    from multimodal_outage_tpu_torch.data.adjacency import model_supports
     from multimodal_outage_tpu_torch.data.dataset import WindowDataset
     from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline
     from multimodal_outage_tpu_torch.data.store import load_store
@@ -262,11 +474,12 @@ def engine_vs_plain(torch, store_dir):
 
     store = load_store(store_dir)
     ds = WindowDataset.from_case_study(store, {"michael": HURRICANES["michael"]}, 24, 7)
-    sup = static_supports(67, "identity")
+    cfg = lambda dn: ModelConfig(compute_dtype=dn, st_gnn=st_gnn)
+    sup = model_supports(cfg("bfloat16"), 67, store.county_names)
     failures = []
-    var = init_variables(ModelConfig(), 7, 67, seed=0)
+    var = init_variables(cfg("bfloat16"), 7, 67, seed=0)
     engines = {
-        (dn, ref): ServingModel(ModelConfig(compute_dtype=dn), var, sup, device="cuda", reference=ref)
+        (dn, ref): ServingModel(cfg(dn), var, sup, device="cuda", reference=ref, **engine_kw)
         for dn in ("bfloat16", "float32") for ref in (False, True)
     }
     pipe = DevicePipeline(store, DEFAULT_NTL_MEAN, DEFAULT_NTL_STD, 128,
@@ -275,16 +488,17 @@ def engine_vs_plain(torch, store_dir):
     x, feats = batch["x"], batch["date_feats"]
     out = {k: e(x, feats) for k, e in engines.items()}
     torch.cuda.synchronize()
+    label = " ".join([st_gnn] + [f"{k}={v}" for k, v in engine_kw.items()])
     # the float32 plain engine on the same (bf16-rounded) frames is the
     # accuracy yardstick for the bf16 engines
     for dn, truth in (("bfloat16", out[("float32", True)]), ("float32", None)):
         got, want = out[(dn, False)], out[(dn, True)]
         err, ok, note = compare(got, want, truth)
         ok = ok and tuple(got.shape) == (16, 67, 7, 128, 128, 1)
-        log(f"engine vs plain engine {dn} B=16: shape {tuple(got.shape)} max abs err {err} "
-            f"output rms {float(want.square().mean().sqrt()):.4g} {note} ok {ok}")
+        log(f"engine vs plain engine ({label}) {dn} B=16: shape {tuple(got.shape)} max abs "
+            f"err {err} output rms {float(want.square().mean().sqrt()):.4g} {note} ok {ok}")
         if not ok:
-            failures.append(f"engine {dn}: max err {err} {note}")
+            failures.append(f"engine ({label}) {dn}: max err {err} {note}")
     return failures
 
 
@@ -468,7 +682,9 @@ def main() -> int:
     from multimodal_outage_tpu_torch import cli, weights
     from multimodal_outage_tpu_torch.core.config import ModelConfig
     from multimodal_outage_tpu_torch.ops import _build
+    from multimodal_outage_tpu_torch.ops import dcrnn_stack as dsm
     from multimodal_outage_tpu_torch.ops import double_conv as dcm
+    from multimodal_outage_tpu_torch.ops import gwnet_layer as glm
     from multimodal_outage_tpu_torch.ops import gwnet_stack as gsm
     from multimodal_outage_tpu_torch.ops import max_pool as mp
 
@@ -493,9 +709,11 @@ def main() -> int:
     dc_rows, f1 = check_double_conv(torch, F, dcm, gen)
     st_rows, f2 = check_gwnet_stack(torch, gsm, weights, ModelConfig(), gen)
     mp_rows, f3 = check_max_pool(torch, F, mp, gen)
-    if f1 or f2 or f3:
+    gl_rows, f3d = check_gwnet_layer(torch, glm, gsm, weights, ModelConfig(), gen)
+    ds_rows, f3e = check_dcrnn_stack(torch, dsm, weights, gen)
+    if f1 or f2 or f3 or f3d or f3e:
         raise RuntimeError("phase 3: kernel disagrees with its plain version:\n"
-                           + "\n".join(f1 + f2 + f3))
+                           + "\n".join(f1 + f2 + f3 + f3d + f3e))
     log("phase 3: every kernel agrees with its plain version at every shape")
 
     with tempfile.TemporaryDirectory() as workdir:
@@ -506,11 +724,21 @@ def main() -> int:
         for b, out in runs.items():
             log(f"phase 4: serve B={b} metrics {json.dumps(out['metrics'])} "
                 f"p50 {out['latency']['p50_ms']:.3f} ms p90 {out['latency']['p90_ms']:.3f} ms")
+        dcrnn_runs, dcrnn_launches = serve_dcrnn_end_to_end(torch, cli, dcm, dsm, gsm, store_dir)
+        f4d = engine_vs_plain(torch, store_dir, st_gnn="dcrnn")
+        f4d += engine_vs_plain(torch, store_dir, gwnet_stack=False, gwnet_pallas=True)
+        if f4d:
+            raise RuntimeError("phase 4d: engine disagrees with the plain engine:\n"
+                               + "\n".join(f4d))
+        for b, out in dcrnn_runs.items():
+            log(f"phase 4c: serve --st_gnn dcrnn B={b} metrics {json.dumps(out['metrics'])} "
+                f"p50 {out['latency']['p50_ms']:.3f} ms p90 {out['latency']['p90_ms']:.3f} ms")
         train_store, _, pool_launches, _ = train_end_to_end(torch, cli, mp, workdir)
         f5 = step_vs_plain(torch, train_store)
         if f5:
             raise RuntimeError("phase 5b: kernel step disagrees with the plain step:\n"
                                + "\n".join(f5))
+        _, layer_launches = train_gwnet_layer_end_to_end(torch, glm, mp, train_store, workdir)
 
     main_dc = [r for r in dc_rows if r["dtype"] == "bfloat16"]
     main_st = [r for r in st_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]
@@ -553,9 +781,24 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": sum(r["library_ms"] for r in rows),
         })
+    main_gl = [r for r in gl_rows if r["dtype"] == "bfloat16" and r["B"] == 8][0]
+    main_ds = [r for r in ds_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]
+    for name, src, replaces, n, row in (
+        ("gwnet_layer", "gwnet_layer.cu", "gwnet_pallas.py:187", layer_launches, main_gl),
+        ("dcrnn_stack", "dcrnn_stack.cu", "dcrnn_stack_pallas.py:169", dcrnn_launches, main_ds),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"multimodal_outage_tpu_torch/csrc/{src}",
+            "replaces": f"multimodal_outage_tpu/ops/{replaces}",
+            "launches": n, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+        })
     log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are bf16: one B=1 "
-        "serving forward's calls (double_conv: the sum of its 9 shapes) and one B=8 "
-        "train step's pools (max_pool: the sum of its 4 shapes)")
+        "serving forward's calls (double_conv: the sum of its 9 shapes), one B=8 "
+        "train step's pools (max_pool: the sum of its 4 shapes), one B=8 call of the "
+        "per-layer kernel (gwnet_layer: 8 per step) and one B=1 DCRNN forward")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

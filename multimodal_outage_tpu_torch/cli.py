@@ -2,8 +2,9 @@
 
   synth  — write a synthetic packed store (same layout as the JAX
            package's, so either package reads the other's)
-  serve  — sweep a held-out hurricane through the serving engine and print
-           the metrics JSON (and per-request latency with --latency_stats)
+  serve  — sweep a held-out hurricane through the serving engine (Graph
+           WaveNet, or DCRNN with --st_gnn dcrnn) and print the metrics
+           JSON (and per-request latency with --latency_stats)
   train  — train the fusion model (leave one hurricane out), write metrics
            and checkpoints under logs/<job_id>, and print the best
            model's val and test metrics JSON
@@ -48,6 +49,8 @@ def _parser() -> argparse.ArgumentParser:
         "--compute_dtype", type=str, default="bfloat16",
         choices=("bfloat16", "float32"),
     )
+    p.add_argument("--st_gnn", type=str, default="gwnet", choices=("gwnet", "dcrnn"),
+                   help="spatio-temporal GNN: Graph WaveNet or DCRNN, each as one kernel")
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--weights", type=str, help=".npz written by weights.save_npz")
     src.add_argument("--seed", type=int, help="random weights from this seed")
@@ -115,7 +118,7 @@ def serve_command(args: argparse.Namespace) -> Dict[str, Any]:
     forwards, device)."""
     from multimodal_outage_tpu_torch.core.config import DataConfig, ModelConfig
     from multimodal_outage_tpu_torch.core.device import resolve_device
-    from multimodal_outage_tpu_torch.data.adjacency import static_supports
+    from multimodal_outage_tpu_torch.data.adjacency import model_supports
     from multimodal_outage_tpu_torch.data.store import load_store
     from multimodal_outage_tpu_torch.serving import ServingModel, serve_eval
     from multimodal_outage_tpu_torch.weights import init_variables, load_npz
@@ -127,16 +130,14 @@ def serve_command(args: argparse.Namespace) -> Dict[str, Any]:
         n_counties=store.n_counties, horizon=args.horizon,
         dataset_range=args.dataset_range,
     )
-    model_cfg = ModelConfig(compute_dtype=args.compute_dtype)
+    model_cfg = ModelConfig(compute_dtype=args.compute_dtype, st_gnn=args.st_gnn)
     if args.weights is not None:
         variables = load_npz(args.weights)
     else:
         variables = init_variables(
             model_cfg, args.horizon, store.n_counties, args.seed, args.image_size
         )
-    supports = static_supports(
-        store.n_counties, model_cfg.gwnet.adjtype, store.county_names
-    )
+    supports = model_supports(model_cfg, store.n_counties, store.county_names)
     serve = ServingModel(
         model_cfg, variables, supports, horizon=args.horizon, device=device
     )

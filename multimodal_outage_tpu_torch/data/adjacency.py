@@ -60,6 +60,23 @@ def build_supports(adj: np.ndarray, adjtype: str = "identity") -> List[np.ndarra
     raise ValueError(f"adj type {adjtype!r} not defined")
 
 
+# DCRNN's filter_type → adjtype (the JAX package's train/loop.py:108-114;
+# reference models/unet.py:17)
+DCRNN_ADJTYPES = {
+    "dual_random_walk": "doubletransition",
+    "random_walk": "transition",
+    "identity": "identity",
+}
+
+
+def model_adjtype(model_cfg) -> str:
+    """The adjtype a ModelConfig's st-GNN diffuses over: DCRNN's by its
+    filter_type, Graph WaveNet's by gwnet.adjtype."""
+    if model_cfg.st_gnn == "dcrnn":
+        return DCRNN_ADJTYPES[model_cfg.dcrnn.filter_type]
+    return model_cfg.gwnet.adjtype
+
+
 def n_static_supports(adjtype: str) -> int:
     """How many static supports `adjtype` builds (the Graph WaveNet's
     diffusion weights are sized by it)."""
@@ -104,3 +121,16 @@ def static_supports(
     else:
         adj = synthetic_adjacency(n_counties, seed=seed)
     return np.stack(build_supports(adj, adjtype))
+
+
+def model_supports(
+    model_cfg,
+    n_counties: int,
+    county_names: List[str] | None = None,
+    path: str | None = None,
+    seed: int = 42,
+) -> np.ndarray:
+    """[S, N, N] static supports of a ModelConfig's st-GNN (the JAX
+    package's train/loop.py:100-132 build_supports): static_supports at
+    model_adjtype(model_cfg), with the same county-order check."""
+    return static_supports(n_counties, model_adjtype(model_cfg), county_names, path, seed)

@@ -6,7 +6,10 @@ Parameters sit under the JAX variable tree's key paths and in its
 layouts (weights.module_variables / load_variables), so gradients,
 checkpoints and init_variables trees are the same tree as the JAX
 package's. They are float32 masters, cast to cfg.compute_dtype in the
-forward.
+forward. With cfg.gwnet.use_pallas the Graph WaveNet's layers take the
+per-layer kernel on any device: its wrapper routes by the tensor's device,
+so on the CPU the plain version runs (the JAX package gates this on the
+TPU backend, models/fusion.py:40, because interpret mode is slow).
 """
 
 from __future__ import annotations
@@ -37,8 +40,9 @@ class ModifiedUNet(nn.Module):
         super().__init__()
         if cfg.st_gnn != "gwnet":
             raise NotImplementedError(
-                f"st_gnn={cfg.st_gnn!r}: the port trains Graph WaveNet only; "
-                "DCRNN comes with the ROADMAP item 'DCRNN + kernel 5'"
+                f"st_gnn={cfg.st_gnn!r}: the port trains Graph WaveNet only "
+                "(DCRNN serves, ServingModel); DCRNN comes with the ROADMAP "
+                "item 'DCRNN training'"
             )
         self.cfg, self.horizon = cfg, horizon
         self.dtype = dtype = getattr(torch, cfg.compute_dtype)

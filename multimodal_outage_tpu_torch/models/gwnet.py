@@ -2,11 +2,12 @@
 trainable module of the fused path (JAX models/gwnet.py:151-181,
 238-252, 291-302), over [B, N, T, C].
 
-Every layer of the fused path (kernel_size 1, diffusion supports) is the
-plain function gwnet_layer_reference, equal to the JAX package's
-ops/gwnet_pallas.py:166 forward_reference, which is what the JAX package
-runs off the TPU; its per-layer kernel (ROADMAP "kernel 3") is not part
-of this port yet.
+Every layer of the fused path (kernel_size 1, diffusion supports) is one
+call of ops/gwnet_layer.py: the plain gwnet_layer_reference by default,
+or with use_pallas the per-layer kernel through fused_gwnet_layer, in
+train and eval mode alike (its backward is autograd of the plain
+version). The parameters are the same either way, so checkpoints are
+interchangeable (JAX models/gwnet.py:151-155).
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch.nn as nn
 
 from multimodal_outage_tpu_torch.core.config import ModelConfig
 from multimodal_outage_tpu_torch.models.layers import Dense, GroupedBatchNorm, dropout
+from multimodal_outage_tpu_torch.ops.gwnet_layer import fused_gwnet_layer, gwnet_layer_reference
 
 
 def adaptive_adjacency(
@@ -30,51 +32,33 @@ def adaptive_adjacency(
     return torch.softmax(a, dim=1).to(dtype)
 
 
-def gwnet_layer_reference(x, supports, wf, bf, wg, bg, ws, bs, wc, bc, order: int):
-    """One gated-TCN + diffusion layer → (h, s) (JAX ops/gwnet_pallas.py:166
-    forward_reference): g = tanh(x·Wf + bf) ⊙ σ(x·Wg + bg), s = g·Ws + bs,
-    h = [g, A g, A² g, …]·Wc + bc over every support A."""
-    g = torch.tanh(x @ wf + bf) * torch.sigmoid(x @ wg + bg)
-    s = g @ ws + bs
-    terms = [g]
-    for a in supports:
-        t = g
-        for _ in range(order):
-            t = torch.einsum("bvtc,vw->bwtc", t, a)
-            terms.append(t)
-    return torch.cat(terms, dim=-1) @ wc + bc, s
-
-
 _LAYER_KEYS = ("filter_conv", "gate_conv", "skip_conv", "gconv")
 
 
 class GraphWaveNet(nn.Module):
-    """The train-mode Graph WaveNet of the fused path: start conv, L layers
-    of (gwnet_layer_reference → dropout → + residual → GroupedBatchNorm
-    over (N, T) per sample) with the skip outputs summed, then
-    relu → end_conv_1 → relu → end_conv_2. Parameters carry the JAX
-    names (filter_conv{i}_kernel, …, bn{i}, nodevec1/2)."""
+    """The Graph WaveNet of the fused path: start conv, L layers of
+    (layer → dropout → + residual → GroupedBatchNorm over (N, T) per
+    sample) with the skip outputs summed, then relu → end_conv_1 → relu →
+    end_conv_2. The layer is gwnet_layer_reference, or fused_gwnet_layer
+    with cfg.gwnet.use_pallas. Parameters carry the JAX names
+    (filter_conv{i}_kernel, …, bn{i}, nodevec1/2)."""
 
     def __init__(self, cfg: ModelConfig, n_nodes: int, n_static: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         g = cfg.gwnet
-        if g.use_pallas:
-            raise NotImplementedError(
-                "gwnet.use_pallas (the per-layer Graph WaveNet kernel) comes "
-                "with the ROADMAP item 'kernel 3'"
-            )
         if g.kernel_size != 1 or not g.gcn_bool or g.reference_view_quirk or (
             n_static == 0 and not g.addaptadj
         ):
             raise NotImplementedError(
-                "the port trains the fused Graph WaveNet path only "
+                "the port runs the fused Graph WaveNet path only "
                 "(kernel_size=1, gcn_bool, diffusion supports, no "
                 "reference_view_quirk); the others come with the ROADMAP "
-                "item 'kernel 3'"
+                "item 'non-fused Graph WaveNet branches'"
             )
         c, cd, cs = g.residual_channels, g.dilation_channels, g.skip_channels
         self.order, self.rate, self.dtype = g.order, g.dropout, dtype
+        self._layer = fused_gwnet_layer if g.use_pallas else gwnet_layer_reference
         self.n_layers = g.blocks * g.layers
         n_terms = (n_static + int(g.addaptadj)) * g.order + 1
         self.start_conv = Dense(cfg.st_gnn_in_dim, c, dtype)
@@ -109,7 +93,7 @@ class GraphWaveNet(nn.Module):
             residual = x
             p = [getattr(self, f"{name}{i}_{part}").to(dt)
                  for name in _LAYER_KEYS for part in ("kernel", "bias")]
-            x, s = gwnet_layer_reference(residual, all_supports, *p, order=self.order)
+            x, s = self._layer(residual, all_supports, *p, order=self.order)
             skip = s if skip is None else s + skip
             x = dropout(x, self.rate, train, generator)
             x = getattr(self, f"bn{i}")(x + residual, train, sample_weight)

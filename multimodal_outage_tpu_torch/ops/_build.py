@@ -4,9 +4,9 @@ Each csrc/<name>.cu has a plain C interface and is compiled by nvcc into
 its own shared library, at first use, into the package's _build/
 directory (listed in .gitignore), then loaded with ctypes. Pointers and
 the stream cross as c_void_p. The library file name carries a digest of
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing is taken from outside the repo but the
-CUDA toolkit itself.
+the source, the shared headers (csrc/*.cuh) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Nothing
+is taken from outside the repo but the CUDA toolkit itself.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-KERNELS = ("double_conv", "gwnet_stack", "max_pool")
+KERNELS = ("double_conv", "gwnet_stack", "max_pool", "gwnet_layer", "dcrnn_stack")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -49,6 +49,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

@@ -1,27 +1,37 @@
 """Serving engine: the eval-mode ModifiedUNet forward on the card.
 
-The counterpart of the JAX package's serving.py ServingModel (Graph
-WaveNet only). At build it folds every BatchNorm into a per-channel
-affine (eps 1e-5), drops dropout, stacks the Graph WaveNet weights and
-bakes the static + adaptive supports, once. The forward:
+The counterpart of the JAX package's serving.py ServingModel, for
+st_gnn="gwnet" and st_gnn="dcrnn". At build it folds every U-Net
+BatchNorm into a per-channel affine (eps 1e-5), drops dropout and
+prepares the st-GNN's weights and supports, once. The forward:
 
   U-Net contraction   5 DoubleConvs (ops/double_conv.py) with 2×2 max-pools
   bottleneck encoder  2 Dense + ReLU, float32
   Date2Vec            float32 (models/date2vec.py)
-  Graph WaveNet       one kernel for the whole stack (ops/gwnet_stack.py)
+  st-GNN              Graph WaveNet: one kernel for the whole stack
+                      (ops/gwnet_stack.py, BN folded), or with
+                      gwnet_stack=False the trainable module in eval mode
+                      (models/gwnet.py, BN not folded), whose layers are
+                      the per-layer kernel with gwnet_pallas
+                      (ops/gwnet_layer.py);
+                      DCRNN: one kernel for the whole seq2seq
+                      (ops/dcrnn_stack.py), or with dcrnn_stack=False the
+                      module in eval mode (models/dcrnn.py)
   bottleneck decoder  2 Dense + ReLU, float32
   U-Net expansion     4 × (ConvTranspose 2×2 → pad-to-match → concat skip →
                       DoubleConv), then the 1×1 head
 
 Max-pool, Dense, ConvTranspose, concat and the 1×1 head are the ops the
 JAX engine leaves to XLA; here they stay PyTorch ops. Every batch size
-takes the same path.
+takes the same path: the JAX engine's B=1-only rule for the DCRNN kernel
+(its serving.py:393-399) is a TPU measurement and is not carried over.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -31,6 +41,9 @@ from multimodal_outage_tpu_torch.core.device import resolve_device
 from multimodal_outage_tpu_torch.core.metrics import MeanAggregator, regression_metrics
 from multimodal_outage_tpu_torch.core.registry import leave_one_out
 from multimodal_outage_tpu_torch.models import date2vec
+from multimodal_outage_tpu_torch.models.dcrnn import DCRNN
+from multimodal_outage_tpu_torch.models.gwnet import GraphWaveNet
+from multimodal_outage_tpu_torch.ops import dcrnn_stack as dsm
 from multimodal_outage_tpu_torch.ops.double_conv import (
     double_conv_reference,
     fold_batchnorm,
@@ -42,15 +55,17 @@ from multimodal_outage_tpu_torch.ops.gwnet_stack import (
     stack_forward_reference,
     stack_params_from_module,
 )
-from multimodal_outage_tpu_torch.weights import conv_transpose_weight
+from multimodal_outage_tpu_torch.weights import conv_transpose_weight, load_variables
 
 
 class ServingModel:
     """Eval forward built once from a variables tree (weights.py).
 
-    reference=True runs the plain PyTorch versions of the two kernels
-    instead of the kernels, on whatever device — the engine the kernel
-    path is held against. The engine is immutable after construction."""
+    The st-GNN knobs are the JAX engine's: gwnet_stack, gwnet_pallas and
+    dcrnn_stack (see the module docstring). reference=True runs the plain
+    PyTorch version of every kernel instead of the kernel, on whatever
+    device — the engine the kernel path is held against. The engine is
+    immutable after construction."""
 
     def __init__(
         self,
@@ -60,22 +75,30 @@ class ServingModel:
         horizon: int = 7,
         device: Optional[str] = "cuda",
         reference: bool = False,
+        gwnet_stack: bool = True,
+        gwnet_pallas: bool = False,
+        dcrnn_stack: bool = True,
     ):
         g = cfg.gwnet
-        if cfg.st_gnn != "gwnet":
+        if cfg.st_gnn not in ("gwnet", "dcrnn"):
             raise NotImplementedError(
-                f"st_gnn={cfg.st_gnn!r}: the port serves Graph WaveNet only; "
-                "DCRNN comes with the ROADMAP item 'DCRNN + kernel 5'"
+                f"ServingModel serves st_gnn in ('gwnet', 'dcrnn') (got {cfg.st_gnn!r})"
             )
-        if (
+        if cfg.st_gnn == "gwnet" and (
             g.kernel_size != 1 or not g.gcn_bool or g.reference_view_quirk
             or (supports is None and not g.addaptadj)
         ):
             raise NotImplementedError(
-                "the whole-stack Graph WaveNet kernel needs kernel_size=1, "
-                "gcn_bool, diffusion supports (static or adaptive) and no "
-                "reference_view_quirk; other configurations come with the "
-                "ROADMAP item 'kernel 3 (per-layer gwnet)'"
+                "the port serves the fused Graph WaveNet path only "
+                "(kernel_size=1, gcn_bool, diffusion supports, static or "
+                "adaptive, no reference_view_quirk); the others come with "
+                "the ROADMAP item 'non-fused Graph WaveNet branches'"
+            )
+        if cfg.st_gnn == "dcrnn" and supports is None:
+            raise ValueError(
+                "dcrnn_stack=True requires a supports array: the fused DCGRU "
+                "kernel bakes the diffusion supports at engine build"
+                if dcrnn_stack else "DCRNN requires a supports array [S, N, N]; got None"
             )
         self.cfg = cfg
         self.horizon = horizon
@@ -83,7 +106,6 @@ class ServingModel:
         self.dtype = dtype = getattr(torch, cfg.compute_dtype)
         self.reference = reference
         self._double_conv_fn = double_conv_reference if reference else fused_double_conv
-        self._stack_fn = stack_forward_reference if reference else gwnet_stack_forward
         p, bs = variables["params"], variables["batch_stats"]
         f32 = lambda v: torch.as_tensor(v).to(dev, torch.float32).contiguous()
         cast = lambda v: torch.as_tensor(v).to(dev, dtype).contiguous()
@@ -105,17 +127,13 @@ class ServingModel:
         self._decoder = [dense(p["decoder"]["fc1"]), dense(p["decoder"]["fc2"])]
         self._d2v = {k: {kk: f32(vv) for kk, vv in v.items()} for k, v in p["date2vec"].items()}
 
-        st = p["st_gnn"]
-        self._stack_sp = {
-            k: v.to(dev) for k, v in stack_params_from_module(
-                st, bs["st_gnn"], g.blocks * g.layers, dtype).items()
-        }
-        self._stack_supports = adaptive_supports(
-            None if supports is None else f32(supports),
-            f32(st["nodevec1"]) if g.addaptadj else None,
-            f32(st["nodevec2"]) if g.addaptadj else None,
-            dtype,
-        )
+        sup = None if supports is None else f32(supports)
+        if cfg.st_gnn == "dcrnn":
+            self._st_gnn = self._dcrnn(p["st_gnn"], sup, dcrnn_stack)
+        elif gwnet_stack:
+            self._st_gnn = self._gwnet_stack(p["st_gnn"], bs["st_gnn"], sup)
+        else:
+            self._st_gnn = self._gwnet_module(p["st_gnn"], bs["st_gnn"], sup, gwnet_pallas)
 
         ep, ebs = p["expansion"], bs["expansion"]
         self._up = [
@@ -128,6 +146,50 @@ class ServingModel:
         ]
         oc = ep["outc"]["conv"]
         self._outc = (cast(torch.as_tensor(oc["kernel"])[0, 0]), cast(oc["bias"]))
+
+    def _gwnet_stack(self, st, st_bs, sup) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The whole Graph WaveNet stack as one kernel: BN folded, weights
+        stacked and static + adaptive supports baked here."""
+        g, dev, dtype = self.cfg.gwnet, self.device, self.dtype
+        sp = {k: v.to(dev) for k, v in stack_params_from_module(
+            st, st_bs, g.blocks * g.layers, dtype).items()}
+        nodevec = lambda k: torch.as_tensor(st[k]).to(dev, torch.float32) if g.addaptadj else None
+        all_sup = adaptive_supports(sup, nodevec("nodevec1"), nodevec("nodevec2"), dtype)
+        fn = stack_forward_reference if self.reference else gwnet_stack_forward
+        return lambda z: fn(z, all_sup, sp, order=g.order)
+
+    def _gwnet_module(self, st, st_bs, sup, gwnet_pallas: bool) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The trainable Graph WaveNet in eval mode (running BN statistics,
+        not folded), its layers the per-layer kernel with gwnet_pallas."""
+        g = dataclasses.replace(self.cfg.gwnet, use_pallas=gwnet_pallas and not self.reference)
+        n_nodes = (sup.shape[-1] if sup is not None
+                   else torch.as_tensor(st["nodevec1"]).shape[0])
+        module = GraphWaveNet(dataclasses.replace(self.cfg, gwnet=g), n_nodes,
+                              0 if sup is None else sup.shape[0], self.dtype)
+        load_variables(module, {"params": st, "batch_stats": st_bs})
+        module.to(self.device).eval()
+        return lambda z: module(z, sup, train=False)
+
+    def _dcrnn(self, st, sup, dcrnn_stack: bool) -> Callable[[torch.Tensor], torch.Tensor]:
+        """DCRNN: the whole seq2seq as one kernel (weights split per term
+        here) or, with dcrnn_stack=False, the module in eval mode."""
+        cfg, d = self.cfg, self.cfg.dcrnn
+        arch = dict(num_rnn_layers=d.num_rnn_layers, max_diffusion_step=d.max_diffusion_step,
+                    rnn_units=d.rnn_units)
+        kw = dict(horizon=self.horizon, **arch)
+        if dcrnn_stack:
+            sp = dsm.stack_params_to(dsm.dcrnn_stack_params(
+                st, n_supports=sup.shape[0], input_dim=cfg.st_gnn_in_dim,
+                output_dim=cfg.feature_vector_size, **arch,
+            ), self.device, self.dtype)
+            sup_t = sup.to(self.dtype).contiguous()
+            fn = dsm.stack_forward_reference if self.reference else dsm.dcrnn_stack_forward
+            return lambda z: fn(z, sup_t, sp, **kw)
+        module = DCRNN(cfg.st_gnn_in_dim, cfg.feature_vector_size, n_supports=sup.shape[0],
+                       dtype=self.dtype, **kw)
+        load_variables(module, {"params": st})
+        module.to(self.device).eval()
+        return lambda z: module(z, sup, train=False)
 
     @torch.inference_mode()
     def __call__(self, x: torch.Tensor, date_feats: torch.Tensor) -> torch.Tensor:
@@ -156,8 +218,7 @@ class ServingModel:
         te = te[:, None].expand(b, n, t, te.shape[-1])
         z = torch.cat([z, te], -1).to(dtype).contiguous()
 
-        # Graph WaveNet, whole stack in one kernel
-        z = self._stack_fn(z, self._stack_supports, self._stack_sp, order=cfg.gwnet.order)
+        z = self._st_gnn(z)
 
         # bottleneck decoder
         d = z.float()

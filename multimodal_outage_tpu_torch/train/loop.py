@@ -24,7 +24,7 @@ from multimodal_outage_tpu_torch.core.device import resolve_device
 from multimodal_outage_tpu_torch.core.metrics import MeanAggregator
 from multimodal_outage_tpu_torch.core.registry import leave_one_out
 from multimodal_outage_tpu_torch.core.run_logging import RunLogger, device_memory_stats
-from multimodal_outage_tpu_torch.data.adjacency import static_supports
+from multimodal_outage_tpu_torch.data.adjacency import model_supports
 from multimodal_outage_tpu_torch.data.dataset import (
     WindowDataset,
     batch_indices,
@@ -57,7 +57,9 @@ def check_supported(cfg: Config) -> None:
             mesh.model != 1 or mesh.time != 1 or mesh.data not in (-1, 1),
             "SPMD with sample_weight",
         ),
-        "svd_aptinit (randomadj=False)": (not cfg.model.gwnet.randomadj, "kernel 3"),
+        "svd_aptinit (randomadj=False)": (
+            not cfg.model.gwnet.randomadj, "non-fused Graph WaveNet branches"
+        ),
     }
     for what, (asked, item) in todo.items():
         if asked:
@@ -131,8 +133,8 @@ def fit(
     if progress:
         print(f"Size of train_set: {len(train_idx)}, val_set: {len(val_idx)}, "
               f"and test_set: {len(test_ds)}")
-    supports = torch.from_numpy(static_supports(
-        store.n_counties, cfg.model.gwnet.adjtype, store.county_names,
+    supports = torch.from_numpy(model_supports(
+        cfg.model, store.n_counties, store.county_names,
         path=cfg.adjacency_csv, seed=cfg.train.seed,
     )).to(dev)
     horizon, size = cfg.data.horizon, cfg.data.image_size

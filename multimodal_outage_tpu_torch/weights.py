@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from multimodal_outage_tpu_torch.core.config import ModelConfig
-from multimodal_outage_tpu_torch.data.adjacency import n_static_supports
+from multimodal_outage_tpu_torch.data.adjacency import model_adjtype, n_static_supports
 
 # Typical magnitudes of the raw [0,0,0,y,m,d] Date2Vec inputs; its encoder
 # kernels are scaled inversely so random-init embeddings are O(1)
@@ -130,24 +130,47 @@ def _lecun(rng: np.random.Generator, shape, fan_in: int) -> np.ndarray:
     return (z * np.sqrt(1.0 / fan_in) / 0.87962566103423978).astype(np.float32)
 
 
+def _dcrnn_params(cfg: ModelConfig, n_supports: int, dense) -> Tree:
+    """The DCRNN tree (JAX models/dcrnn.py under nn.scan): encoder and
+    decoder cells, each with gates (bias 1.0) and candidate diffusion
+    convolutions, and the decoder's output proj."""
+    d, fvs = cfg.dcrnn, cfg.feature_vector_size
+    u, nt = d.rnn_units, 1 + n_supports * d.max_diffusion_step
+
+    def cell(dx: int) -> Tree:
+        gates, cand = dense(nt * (dx + u), 2 * u), dense(nt * (dx + u), u)
+        gates["bias"] = np.ones(2 * u, np.float32)
+        return {"gates": {"proj": gates}, "candidate": {"proj": cand}}
+
+    def cells(d0: int) -> Tree:
+        return {f"cell{l}": cell(d0 if l == 0 else u) for l in range(d.num_rnn_layers)}
+
+    return {"encoder": cells(cfg.st_gnn_in_dim),
+            "decoder": {**cells(fvs), "proj": dense(u, fvs)}}
+
+
 def init_variables(
     cfg: ModelConfig, horizon: int, n_counties: int, seed: int,
     image_size: int = 128,
 ) -> Tree:
     """Random variables with exactly the key paths and shapes of the JAX
     package's build_model(cfg, horizon).init(...) on [B, n_counties, T,
-    image_size, image_size, C] inputs with the static supports of
-    cfg.gwnet.adjtype, as float32 tensors, made with numpy from `seed`.
-    Distributions follow flax's initializers (lecun_normal kernels, zero
-    biases, unit BN scales, N(0, 1) node embeddings); the values are not
-    flax's. horizon does not change the Graph WaveNet's shapes."""
+    image_size, image_size, C] inputs with the static supports of the
+    st-GNN's adjtype (data/adjacency.py model_adjtype), as float32
+    tensors, made with numpy from `seed`. Distributions follow flax's
+    initializers (lecun_normal kernels, zero biases, unit BN scales, N(0, 1)
+    node embeddings, DCRNN gate biases 1.0); the values are not flax's.
+    horizon changes no shape of either st-GNN."""
     del horizon
     g = cfg.gwnet
-    if cfg.st_gnn != "gwnet" or g.kernel_size != 1 or not g.gcn_bool or g.reference_view_quirk:
+    if cfg.st_gnn not in ("gwnet", "dcrnn") or cfg.st_gnn == "gwnet" and (
+        g.kernel_size != 1 or not g.gcn_bool or g.reference_view_quirk
+    ):
         raise NotImplementedError(
-            "init_variables covers the Graph WaveNet fused-path tree "
-            "(kernel_size=1, gcn_bool, no reference_view_quirk); the other "
-            "st-GNN trees come with the ROADMAP items that port them"
+            "init_variables covers the DCRNN tree and the Graph WaveNet "
+            "fused-path tree (kernel_size=1, gcn_bool, no "
+            "reference_view_quirk); the others come with the ROADMAP item "
+            "'non-fused Graph WaveNet branches'"
         )
     rng = np.random.default_rng(seed)
     params: Tree = {}
@@ -196,25 +219,29 @@ def init_variables(
         "fc2": dense(6, k // 2 + k % 2, _D2V_FEATURE_SCALE),
     }
 
-    c, cd, cs, ce = g.residual_channels, g.dilation_channels, g.skip_channels, g.end_channels
-    n_sup = n_static_supports(g.adjtype) + int(g.addaptadj)
-    nt = n_sup * g.order + 1
-    st: Tree = {"start_conv": dense(cfg.st_gnn_in_dim, c)}
-    st_stats: Tree = {}
-    if g.addaptadj:
-        st["nodevec1"] = rng.standard_normal((n_counties, g.node_embed_dim)).astype(np.float32)
-        st["nodevec2"] = rng.standard_normal((g.node_embed_dim, n_counties)).astype(np.float32)
-    for i in range(g.blocks * g.layers):
-        for name, (cin_, cout_) in (
-            ("filter_conv", (c, cd)), ("gate_conv", (c, cd)),
-            ("skip_conv", (cd, cs)), ("gconv", (nt * cd, c)),
-        ):
-            d = dense(cin_, cout_)
-            st[f"{name}{i}_kernel"], st[f"{name}{i}_bias"] = d["kernel"], d["bias"]
-        st[f"bn{i}"], st_stats[f"bn{i}"] = bn(c)
-    st["end_conv_1"] = dense(cs, ce)
-    st["end_conv_2"] = dense(ce, fvs)
-    params["st_gnn"], stats["st_gnn"] = st, st_stats
+    n_static = n_static_supports(model_adjtype(cfg))
+    if cfg.st_gnn == "dcrnn":
+        # no BatchNorm, so no batch_stats entry
+        params["st_gnn"] = _dcrnn_params(cfg, n_static, dense)
+    else:
+        c, cd, cs, ce = g.residual_channels, g.dilation_channels, g.skip_channels, g.end_channels
+        nt = (n_static + int(g.addaptadj)) * g.order + 1
+        st: Tree = {"start_conv": dense(cfg.st_gnn_in_dim, c)}
+        st_stats: Tree = {}
+        if g.addaptadj:
+            st["nodevec1"] = rng.standard_normal((n_counties, g.node_embed_dim)).astype(np.float32)
+            st["nodevec2"] = rng.standard_normal((g.node_embed_dim, n_counties)).astype(np.float32)
+        for i in range(g.blocks * g.layers):
+            for name, (cin_, cout_) in (
+                ("filter_conv", (c, cd)), ("gate_conv", (c, cd)),
+                ("skip_conv", (cd, cs)), ("gconv", (nt * cd, c)),
+            ):
+                d = dense(cin_, cout_)
+                st[f"{name}{i}_kernel"], st[f"{name}{i}_bias"] = d["kernel"], d["bias"]
+            st[f"bn{i}"], st_stats[f"bn{i}"] = bn(c)
+        st["end_conv_1"] = dense(cs, ce)
+        st["end_conv_2"] = dense(ce, fvs)
+        params["st_gnn"], stats["st_gnn"] = st, st_stats
 
     params["decoder"] = {
         "fc1": dense(fvs, fvs * cfg.compression_factor),

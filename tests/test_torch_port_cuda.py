@@ -16,9 +16,11 @@ import pytest
 import torch
 
 from multimodal_outage_tpu_torch import weights
-from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
-from multimodal_outage_tpu_torch.data.adjacency import n_static_supports
+from multimodal_outage_tpu_torch.core.config import DCRNNConfig, GWNetConfig, ModelConfig
+from multimodal_outage_tpu_torch.data.adjacency import model_supports, n_static_supports
+from multimodal_outage_tpu_torch.ops import dcrnn_stack as dsm
 from multimodal_outage_tpu_torch.ops import double_conv as dcm
+from multimodal_outage_tpu_torch.ops import gwnet_layer as glm
 from multimodal_outage_tpu_torch.ops import gwnet_stack as gsm
 from multimodal_outage_tpu_torch.ops import max_pool as mp
 from multimodal_outage_tpu_torch.serving import ServingModel
@@ -209,6 +211,158 @@ def test_max_pool_wrappers_reject_bad_inputs(cuda):
         mp.max_pool_forward(x.transpose(1, 2))
     with pytest.raises(ValueError):  # cotangent of the wrong shape
         mp.max_pool_backward(x, torch.zeros(2, 4, 4, 2, device=cuda))
+
+
+def _layer_args(b, n, t, c, cd, cs, s_count, order, dtype, device, seed=0):
+    """Inputs of one Graph WaveNet layer: x, row-softmax supports and the
+    eight weights, made with numpy from `seed`."""
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((s_count, n, n))
+    sup = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    nt = s_count * order + 1
+    shapes = [(c, cd), (cd,), (c, cd), (cd,), (cd, cs), (cs,), (nt * cd, c), (c,)]
+    params = [rng.standard_normal(s) * ((1 / s[0]) ** 0.5 if len(s) == 2 else 0.1) for s in shapes]
+    t_ = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)
+    return [t_(rng.standard_normal((b, n, t, c))), t_(sup), *(t_(p) for p in params)]
+
+
+# (B, N, T, C, Cd, Cs, S, order): the full-width layer at the batch sizes
+# of serving and training, and small shapes with 1 and 3 supports
+LAYER_SHAPES = [(1, 67, 7, 32, 32, 256, 2, 2), (8, 67, 7, 32, 32, 256, 2, 2),
+                (16, 67, 7, 32, 32, 256, 2, 2), (2, 7, 3, 8, 8, 16, 1, 2), (2, 9, 3, 8, 12, 16, 3, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LAYER_SHAPES)
+def test_gwnet_layer_kernel_matches_plain(cuda, dtype, shape):
+    *dims, order = shape
+    args = _layer_args(*dims, order, dtype, cuda)
+    before = glm.gwnet_layer_forward.launches
+    h, s = glm.gwnet_layer_forward(*args, order=order)
+    torch.cuda.synchronize()
+    assert glm.gwnet_layer_forward.launches == before + 1
+    hw, sw = glm.gwnet_layer_reference(*args, order=order)
+    ht, st = glm.gwnet_layer_reference(*(a.float() for a in args), order=order)
+    _assert_kernel_matches(h, hw, hw if dtype == torch.float32 else ht)
+    _assert_kernel_matches(s, sw, sw if dtype == torch.float32 else st)
+
+
+@pytest.mark.cuda
+def test_gwnet_layer_gradients_through_the_kernel(cuda):
+    """fused_gwnet_layer on the card: the forward launches the kernel, the
+    gradients (supports included) equal autograd of the plain version."""
+    args = _layer_args(8, 67, 7, 32, 32, 256, 2, 2, torch.float32, cuda, seed=1)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dh = torch.randn(8, 67, 7, 32, generator=gen, device=cuda)
+    ds = torch.randn(8, 67, 7, 256, generator=gen, device=cuda)
+    grads = []
+    for fn in (glm.fused_gwnet_layer, glm.gwnet_layer_reference):
+        leaves = [a.clone().requires_grad_() for a in args]
+        before = glm.gwnet_layer_forward.launches
+        torch.autograd.backward(fn(*leaves, order=2), (dh, ds))
+        grads.append([v.grad for v in leaves])
+        assert glm.gwnet_layer_forward.launches == before + (fn is glm.fused_gwnet_layer)
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    assert grads[0][1].abs().max() > 0
+
+
+def _dcrnn_case(full: bool, b: int, dtype, device, layers=2, k=2):
+    if full:  # the default DCRNN on the Florida graph (dual random walk, S=2)
+        cfg, n, t = ModelConfig(st_gnn="dcrnn"), 67, 7
+    else:
+        cfg = ModelConfig(st_gnn="dcrnn", feature_vector_size=12, time_embed_size=4,
+                          dcrnn=DCRNNConfig(rnn_units=8, num_rnn_layers=layers,
+                                            max_diffusion_step=k))
+        n, t = 6, 4
+    d = cfg.dcrnn
+    st = weights.init_variables(cfg, t, n, seed=2, image_size=128 if full else 16)["params"]["st_gnn"]
+    sup = torch.from_numpy(model_supports(cfg, n)).to(device, dtype)
+    arch = dict(num_rnn_layers=d.num_rnn_layers, max_diffusion_step=d.max_diffusion_step,
+                rnn_units=d.rnn_units)
+    sp = dsm.stack_params_to(dsm.dcrnn_stack_params(
+        st, n_supports=sup.shape[0], input_dim=cfg.st_gnn_in_dim,
+        output_dim=cfg.feature_vector_size, **arch), device, dtype)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (b, n, t, cfg.st_gnn_in_dim)).astype(np.float32)).to(device, dtype)
+    return x, sup, sp, dict(horizon=t, **arch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("full,b,layers,k", [(True, 1, 2, 2), (True, 3, 2, 2),
+                                              (False, 2, 3, 1), (False, 2, 2, 3)])
+def test_dcrnn_stack_kernel_matches_plain(cuda, dtype, full, b, layers, k):
+    x, sup, sp, kw = _dcrnn_case(full, b, dtype, cuda, layers, k)
+    before = dsm.dcrnn_stack_forward.launches
+    got = dsm.dcrnn_stack_forward(x, sup, sp, **kw)
+    torch.cuda.synchronize()
+    assert dsm.dcrnn_stack_forward.launches == before + 1
+    want = dsm.stack_forward_reference(x, sup, sp, **kw)
+    f32 = lambda v: v.float()
+    sp32 = {"cells": [tuple(map(f32, c)) for c in sp["cells"]],
+            "proj_w": f32(sp["proj_w"]), "proj_b": f32(sp["proj_b"])}
+    truth = dsm.stack_forward_reference(x.float(), sup.float(), sp32, **kw)
+    _assert_kernel_matches(got, want, want if dtype == torch.float32 else truth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("engine", ["dcrnn", "gwnet_pallas"])
+def test_st_gnn_engines_match_plain_engine(cuda, dtype, engine):
+    """The DCRNN engine (one dcrnn_stack launch per forward) and the
+    per-layer Graph WaveNet engine (8 gwnet_layer launches) against the
+    same engines on the plain versions."""
+    st_gnn = "dcrnn" if engine == "dcrnn" else "gwnet"
+    kw = {} if engine == "dcrnn" else dict(gwnet_stack=False, gwnet_pallas=True)
+    cfg = ModelConfig(compute_dtype=dtype, st_gnn=st_gnn)
+    n, t, h = 4, 3, 32
+    var = weights.init_variables(cfg, t, n, seed=0, image_size=h)
+    sup = torch.from_numpy(model_supports(cfg, n))
+    x = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((2, n, t, h, h, 1)).astype(np.float32)).to(cuda)
+    feats = torch.tensor([0, 0, 0, 2022, 9, 26], dtype=torch.float32).repeat(2, t, 1).to(cuda)
+    counters = (dcm.fused_double_conv, dsm.dcrnn_stack_forward, glm.gwnet_layer_forward,
+                gsm.gwnet_stack_forward)
+    before = [c.launches for c in counters]
+    got = ServingModel(cfg, var, sup, horizon=t, device="cuda", **kw)(x, feats)
+    torch.cuda.synchronize()
+    grew = tuple(c.launches - b for c, b in zip(counters, before))
+    assert grew == ((9, 1, 0, 0) if engine == "dcrnn" else (9, 0, 8, 0))
+    want = ServingModel(cfg, var, sup, horizon=t, device="cuda", reference=True, **kw)(x, feats)
+    f32 = ModelConfig(compute_dtype="float32", st_gnn=st_gnn)
+    truth = ServingModel(f32, var, sup, horizon=t, device="cuda", reference=True, **kw)(x, feats)
+    _assert_kernel_matches(got, want, want if dtype == "float32" else truth)
+
+
+@pytest.mark.cuda
+def test_layer_and_dcrnn_wrappers_reject_bad_inputs(cuda):
+    args = _layer_args(2, 7, 3, 8, 8, 16, 2, 2, torch.float32, cuda)
+    with pytest.raises(ValueError):  # non-contiguous x
+        glm.gwnet_layer_forward(args[0].transpose(1, 2).contiguous().transpose(1, 2), *args[1:])
+    with pytest.raises(ValueError):  # supports in another dtype than x
+        glm.gwnet_layer_forward(args[0], args[1].to(torch.bfloat16), *args[2:])
+    with pytest.raises(TypeError):  # fp16 storage is not taken
+        glm.gwnet_layer_forward(*(a.half() for a in args))
+    x, sup, sp, kw = _dcrnn_case(False, 2, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        dsm.dcrnn_stack_forward(x.transpose(1, 2).contiguous().transpose(1, 2), sup, sp, **kw)
+    with pytest.raises(ValueError):
+        dsm.dcrnn_stack_forward(x, sup.to(torch.bfloat16), sp, **kw)
+    with pytest.raises(TypeError):
+        dsm.dcrnn_stack_forward(x.half(), sup, sp, **kw)
+
+
+def test_layer_and_dcrnn_wrappers_reject_other_devices():
+    """Only CPU tensors take the plain versions; another device that is
+    not CUDA raises."""
+    args = _layer_args(1, 5, 2, 4, 4, 8, 1, 2, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="device"):
+        glm.gwnet_layer_forward(*(a.to("meta") for a in args))
+    x, sup, sp, kw = _dcrnn_case(False, 1, torch.float32, "cpu")
+    with pytest.raises(ValueError, match="device"):
+        dsm.dcrnn_stack_forward(x.to("meta"), sup, sp, **kw)
 
 
 def test_wrappers_reject_other_devices():

@@ -58,6 +58,23 @@ def test_serving_matches_jax_engine_and_flax_eval(b):
     np.testing.assert_allclose(y.numpy(), y_flax, atol=5e-5, rtol=1e-4)
 
 
+def test_per_layer_gwnet_engine_matches_jax_engine():
+    """gwnet_stack=False, gwnet_pallas=True: the trainable Graph WaveNet in
+    eval mode (BN not folded) through the per-layer op, against the JAX
+    engine's module path with its per-layer Pallas kernel interpreted."""
+    cfg, model, variables, x, feats, sup = _variables_and_inputs(2, seed=6)
+    jserve = JaxServingModel(cfg, variables, jnp.asarray(sup), gwnet_stack=False,
+                             gwnet_pallas=True, interpret=True, horizon=T)
+    assert not jserve.gwnet_stack and jserve.gwnet_pallas
+    y_jax = np.asarray(jserve(jnp.asarray(x), jnp.asarray(feats)))
+    tvars = weights.from_flax(jax.tree.map(np.asarray, variables))
+    for pallas in (True, False):
+        serve = ServingModel(ModelConfig(compute_dtype="float32"), tvars, torch.from_numpy(sup),
+                             horizon=T, device="cpu", gwnet_stack=False, gwnet_pallas=pallas)
+        y = serve(torch.from_numpy(x), torch.from_numpy(feats))
+        np.testing.assert_allclose(y.numpy(), y_jax, atol=5e-5, rtol=1e-4)
+
+
 def test_reference_engine_equals_kernel_engine_on_cpu():
     """On CPU tensors the wrappers run the plain versions, so the engine
     and its reference=True twin agree exactly."""
@@ -82,7 +99,7 @@ def test_bf16_engine_runs_on_cpu():
 @pytest.mark.parametrize(
     "cfg",
     [
-        ModelConfig(st_gnn="dcrnn"),
+        ModelConfig(gwnet=GWNetConfig(addaptadj=False)),  # and no static supports
         ModelConfig(gwnet=GWNetConfig(kernel_size=2)),
         ModelConfig(gwnet=GWNetConfig(gcn_bool=False)),
         ModelConfig(gwnet=GWNetConfig(reference_view_quirk=True)),

@@ -25,6 +25,10 @@ large enough that Adam's ε cannot turn the gradient difference into
 entry whose gradient lies within the summation noise moves by ±lr with
 the sign of that noise. (A 1e-5·max|g_leaf| line would sit inside the 5.2e-5 noise of
 JAX's own gradients.)
+
+The same step with gwnet.use_pallas (the per-layer Graph WaveNet op and
+its autograd.Function backward) is held to the same JAX step at the same
+bars (test_use_pallas_one_step).
 """
 
 import dataclasses
@@ -59,6 +63,7 @@ from multimodal_outage_tpu_torch.core.config import (
 from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline
 from multimodal_outage_tpu_torch.data.synthetic import generate_store
 from multimodal_outage_tpu_torch.models.fusion import build_model
+from multimodal_outage_tpu_torch.ops.gwnet_layer import fused_gwnet_layer
 from multimodal_outage_tpu_torch.serving import ServingModel
 from multimodal_outage_tpu_torch.train import loop
 from multimodal_outage_tpu_torch.train.state import create_train_state
@@ -102,8 +107,8 @@ def _tbatch(batch):
 
 
 @pytest.fixture(scope="module")
-def one_step():
-    jcfg, tcfg = _configs()
+def jax_one_step():
+    jcfg, _ = _configs()
     model = jax_build_model(jcfg, T)
     batch = _batch()
     sup = np.eye(N, dtype=np.float32)[None]
@@ -129,33 +134,61 @@ def one_step():
     grads = jax.grad(loss_fn)(state.params)  # op by op: no jit
     updates, _ = jax_make_optimizer().update(grads, state.opt_state, state.params)
     new_params = jax.tree.map(lambda p, u: p + u * jnp.float32(LR), state.params, updates)
-    jax_grads = weights.flatten(_np(grads))
+    return {
+        "variables": {"params": state.params, "batch_stats": bs}, "batch": batch, "sup": sup,
+        "jax_metrics": {k: float(v) for k, v in jm.items()},
+        "jax_grads": weights.flatten(_np(grads)),
+        "jax_new": weights.flatten(_np({"params": new_params, "batch_stats": new.batch_stats})),
+        "old": weights.flatten(_np({"params": state.params, "batch_stats": bs})),
+    }
 
-    tmodel, tstate = _port_state(tcfg, {"params": state.params, "batch_stats": bs})
-    tm = make_train_step(tmodel)(tstate, _tbatch(batch), torch.from_numpy(sup), LR, 0)
+
+def _port_one_step(jax_step, tcfg):
+    """The same step in the port, beside the JAX step's results."""
+    tmodel, tstate = _port_state(tcfg, jax_step["variables"])
+    tm = make_train_step(tmodel)(tstate, _tbatch(jax_step["batch"]),
+                                 torch.from_numpy(jax_step["sup"]), LR, 0)
     port_grads = {
         k.replace(".", "/"): (p.grad if p.grad is not None else torch.zeros_like(p)).numpy()
         for k, p in tmodel.named_parameters()
     }
     return {
-        "jax_metrics": {k: float(v) for k, v in jm.items()},
+        **jax_step,
         "port_metrics": {k: float(v) for k, v in tm.items()},
-        "jax_grads": jax_grads, "port_grads": port_grads,
-        "jax_new": weights.flatten(_np({"params": new_params, "batch_stats": new.batch_stats})),
+        "port_grads": port_grads,
         "port_new": weights.flatten(weights.module_variables(tmodel)),
-        "old": weights.flatten(_np({"params": state.params, "batch_stats": bs})),
+        "port_model": tmodel,
     }
 
 
-def test_one_step_loss_and_metrics(one_step):
-    j, t = one_step["jax_metrics"], one_step["port_metrics"]
+@pytest.fixture(scope="module")
+def one_step(jax_one_step):
+    return _port_one_step(jax_one_step, _configs()[1])
+
+
+@pytest.fixture(scope="module")
+def one_step_pallas(jax_one_step):
+    """The port's step with gwnet.use_pallas: its Graph WaveNet layers go
+    through fused_gwnet_layer (plain forward on the CPU, backward by
+    autograd of the plain version). The JAX package runs use_pallas off
+    the TPU as forward_reference (models/fusion.py:40), the program of
+    jax_one_step, so that step is the reference for both."""
+    _, tcfg = _configs()
+    tcfg = dataclasses.replace(tcfg, gwnet=dataclasses.replace(tcfg.gwnet, use_pallas=True))
+    out = _port_one_step(jax_one_step, tcfg)
+    assert out["port_model"].st_gnn._layer is fused_gwnet_layer
+    return out
+
+
+def _check_loss_and_metrics(step):
+    j, t = step["jax_metrics"], step["port_metrics"]
     assert set(j) == set(t) == {"loss", "mae", "mape", "rmse"}
     for k in j:
         np.testing.assert_allclose(t[k], j[k], rtol=1e-5, err_msg=k)
 
 
-def test_one_step_every_gradient_leaf(one_step):
-    jg, tg = one_step["jax_grads"], one_step["port_grads"]
+def _check_every_gradient_leaf(step):
+    jg, tg = step["jax_grads"], step["port_grads"]
     assert set(jg) == set(tg)
     for k in jg:
         bound = 1e-4 * np.abs(jg[k]).max() + 1e-7
@@ -164,8 +197,8 @@ def test_one_step_every_gradient_leaf(one_step):
     assert not np.abs(jg["date2vec/fc1/kernel"]).any()
 
 
-def test_one_step_batchnorm_running_stats(one_step):
-    jn, tn, old = one_step["jax_new"], one_step["port_new"], one_step["old"]
+def _check_batchnorm_running_stats(step):
+    jn, tn, old = step["jax_new"], step["port_new"], step["old"]
     keys = [k for k in jn if k.startswith("batch_stats/")]
     assert len(keys) == 2 * (18 + 8)  # mean, var of 18 U-Net and 8 Graph WaveNet BNs
     for k in keys:
@@ -173,8 +206,8 @@ def test_one_step_batchnorm_running_stats(one_step):
         assert not np.array_equal(jn[k], old[k]), k  # the EMA moved
 
 
-def test_one_step_updated_params(one_step):
-    jn, tn, old, jg = one_step["jax_new"], one_step["port_new"], one_step["old"], one_step["jax_grads"]
+def _check_updated_params(step):
+    jn, tn, old, jg = step["jax_new"], step["port_new"], step["old"], step["jax_grads"]
     for k in (k for k in jn if k.startswith("params/")):
         g = np.abs(jg[k[len("params/"):]])
         d = np.abs(tn[k].numpy() - jn[k])
@@ -186,6 +219,36 @@ def test_one_step_updated_params(one_step):
         assert (d <= 2 * LR + 1e-7).all(), k
     for k in ("params/date2vec/fc1/kernel", "params/date2vec/fc2/bias"):
         assert np.array_equal(tn[k].numpy(), old[k])  # frozen: unchanged
+
+
+def test_one_step_loss_and_metrics(one_step):
+    _check_loss_and_metrics(one_step)
+
+
+def test_one_step_every_gradient_leaf(one_step):
+    _check_every_gradient_leaf(one_step)
+
+
+def test_one_step_batchnorm_running_stats(one_step):
+    _check_batchnorm_running_stats(one_step)
+
+
+def test_one_step_updated_params(one_step):
+    _check_updated_params(one_step)
+
+
+@pytest.mark.parametrize(
+    "check",
+    [_check_loss_and_metrics, _check_every_gradient_leaf, _check_batchnorm_running_stats,
+     _check_updated_params],
+    ids=["loss_and_metrics", "every_gradient_leaf", "batchnorm_running_stats", "updated_params"],
+)
+def test_use_pallas_one_step(one_step_pallas, check):
+    """The same bars with the per-layer Graph WaveNet op: its backward
+    (the autograd.Function's re-materialised VJP) gives every gradient,
+    nodevec1/2 through the supports gradient included."""
+    check(one_step_pallas)
+    assert np.abs(one_step_pallas["port_grads"]["st_gnn/nodevec1"]).max() > 0
 
 
 @pytest.fixture(scope="module")
@@ -320,9 +383,9 @@ def test_trained_module_feeds_the_serving_engine():
     "cfg,match",
     [
         (ModelConfig(remat=True), "grad_accum and remat"),
-        (ModelConfig(gwnet=GWNetConfig(use_pallas=True)), "kernel 3"),
-        (ModelConfig(gwnet=GWNetConfig(kernel_size=2)), "kernel 3"),
-        (ModelConfig(st_gnn="dcrnn"), "DCRNN"),
+        (ModelConfig(gwnet=GWNetConfig(gcn_bool=False)), "non-fused Graph WaveNet branches"),
+        (ModelConfig(gwnet=GWNetConfig(kernel_size=2)), "non-fused Graph WaveNet branches"),
+        (ModelConfig(st_gnn="dcrnn"), "ROADMAP item 'DCRNN training'"),
     ],
 )
 def test_unported_model_configs_raise(cfg, match):

@@ -109,7 +109,7 @@ def test_conv_transpose_flip_matches_jax():
 
 
 def test_init_variables_rejects_unported_configs():
-    with pytest.raises(NotImplementedError):
-        weights.init_variables(ModelConfig(st_gnn="dcrnn"), 2, 4, seed=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        weights.init_variables(ModelConfig(gwnet=GWNetConfig(gcn_bool=False)), 2, 4, seed=0)
     with pytest.raises(NotImplementedError):
         weights.init_variables(ModelConfig(gwnet=GWNetConfig(kernel_size=2)), 2, 4, seed=0)

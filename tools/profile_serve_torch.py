@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Where the time of one serving forward of the PyTorch port goes, on the
 card: full width (67 counties × 7 days × 128² frames, bf16, random
-weights from a seed), at each requested batch size.
+weights from a seed), at each requested batch size, with Graph WaveNet
+or DCRNN as the st-GNN.
 
-    python3 tools/profile_serve_torch.py [--batch 1 16] [--repeats 5] [--out FILE]
+    python3 tools/profile_serve_torch.py [--st_gnn gwnet|dcrnn] [--batch 1 16]
+        [--repeats 5] [--out FILE]
 
 Prints per batch size the forward's wall time (CUDA events, after a
 warm-up), then torch.profiler's device time per kernel name summed over
@@ -26,6 +28,7 @@ from collections import defaultdict
 LAYERS = (
     ("double_conv_kernel", "DoubleConv kernel"),
     ("gwnet_stack_kernel", "Graph WaveNet stack kernel"),
+    ("dcrnn_stack_kernel", "DCRNN stack kernel"),
     ("max_pool", "max-pool"),
     ("conv_transpose", "ConvTranspose (cuDNN)"),
     ("dgrad", "ConvTranspose (cuDNN)"),
@@ -54,24 +57,26 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     from multimodal_outage_tpu_torch.core.config import ModelConfig
+    from multimodal_outage_tpu_torch.data.adjacency import model_supports
     from multimodal_outage_tpu_torch.serving import ServingModel
     from multimodal_outage_tpu_torch.weights import init_variables
 
     ap = argparse.ArgumentParser()
+    ap.add_argument("--st_gnn", choices=("gwnet", "dcrnn"), default="gwnet")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 16])
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--out", type=str, default=None, help="also write the report as JSON here")
     args = ap.parse_args()
 
-    cfg = ModelConfig()
-    serve = ServingModel(cfg, init_variables(cfg, 7, 67, seed=0), torch.eye(67)[None])
+    cfg = ModelConfig(st_gnn=args.st_gnn)
+    serve = ServingModel(cfg, init_variables(cfg, 7, 67, seed=0), model_supports(cfg, 67))
     gen = torch.Generator(device="cuda").manual_seed(0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    report = {"device": torch.cuda.get_device_name(0), "card": card}
+    report = {"device": torch.cuda.get_device_name(0), "card": card, "st_gnn": args.st_gnn}
     for b in args.batch:
         x = torch.randn(b, 67, 7, 128, 128, 1, generator=gen, device="cuda").to(torch.bfloat16)
         feats = torch.tensor([0, 0, 0, 2018, 10, 1], dtype=torch.float32,

@@ -154,9 +154,11 @@ def check_double_conv(torch, F, dcm, gen):
             nbytes = dcm.min_bytes(M_B1, h, h, cin, c, x.element_size())
             nops = dcm.flops(M_B1, h, h, cin, c)
             t_bytes, t_ops = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * nops / PEAK_OPS[dn]
+            _, _, smem, blocks = dcm.launch_config(M_B1, h, h, cin, c, dtype, x.device)
             row = {
                 "dtype": dn, "M": M_B1, "H": h, "Cin": cin, "C": c, "max_abs_err": err,
                 "ok": ok, "check": note, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                "vs_library": t_k / t_l, "smem_bytes": smem, "blocks": blocks,
                 "bytes": nbytes, "flop": nops, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             }
@@ -164,6 +166,9 @@ def check_double_conv(torch, F, dcm, gen):
             rows.append(row)
             if not ok:
                 failures.append(f"double_conv {dn} H={h} Cin={cin} C={c}: max err {err}")
+    slow = [f"{r['H']}² {r['Cin']}→{r['C']} ({r['vs_library']:.2f}×)"
+            for r in rows if r["dtype"] == "bfloat16" and r["vs_library"] > 1]
+    log(f"phase 3a: bf16 shapes where the kernel is slower than cuDNN: {', '.join(slow) or 'none'}")
     return rows, failures
 
 

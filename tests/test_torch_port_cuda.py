@@ -58,10 +58,12 @@ def _double_conv_args(m, h, w, cin, c, dtype, device, seed=1):
     )
 
 
-# the 9 (H, Cin, C) of a serving forward, plus ragged tiles (12×20)
+# the 9 (H, Cin, C) of a serving forward, plus ragged tiles (12×20, and
+# 20×12 with many channels)
 SHAPES = [
     (128, 128, 1, 4), (64, 64, 4, 8), (32, 32, 8, 16), (16, 16, 16, 32), (8, 8, 32, 64),
     (16, 16, 64, 32), (32, 32, 32, 16), (64, 64, 16, 8), (128, 128, 8, 4), (12, 20, 8, 4),
+    (20, 12, 64, 32),
 ]
 
 
@@ -70,6 +72,29 @@ SHAPES = [
 @pytest.mark.parametrize("h,w,cin,c", SHAPES)
 def test_double_conv_kernel_matches_plain(cuda, dtype, h, w, cin, c):
     args = _double_conv_args(3, h, w, cin, c, dtype, cuda)
+    before = dcm.fused_double_conv.launches
+    got = dcm.fused_double_conv(*args)
+    torch.cuda.synchronize()
+    assert dcm.fused_double_conv.launches == before + 1
+    want = dcm.double_conv_reference(*args)
+    truth = dcm.double_conv_reference(*(a.float() for a in args))
+    _assert_kernel_matches(got, want, truth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "m,h,w,cin,c",
+    [(1, 128, 128, 1, 4), (1, 16, 16, 64, 32),  # one image
+     (2 * 132 + 1, 8, 8, 32, 64), (2 * 132 + 1, 64, 64, 4, 8),  # the persistent loop's remainder
+     (2 * 132 + 1, 32, 32, 1, 4), (3, 30, 18, 30, 16),  # register-staged input (Cin % 4 != 0)
+     (469, 8, 8, 32, 64), (469, 16, 16, 64, 32),  # a B=1 request's deepest shapes
+     (3, 20, 12, 64, 32), (2, 9, 13, 12, 20), (2, 11, 6, 3, 12), (1, 8, 8, 4, 68)],
+)
+def test_double_conv_bf16_kernel_batches_and_padding(cuda, m, h, w, cin, c):
+    """The tensor-core body at other batch sizes (the persistent grid and
+    its last partial wave) and at channel counts it pads (Cin = 1, 3, 12,
+    30; C = 12, 20, 68), held to the bf16 bar."""
+    args = _double_conv_args(m, h, w, cin, c, torch.bfloat16, cuda, seed=m)
     before = dcm.fused_double_conv.launches
     got = dcm.fused_double_conv(*args)
     torch.cuda.synchronize()
@@ -157,6 +182,17 @@ def test_wrappers_reject_bad_inputs(cuda):
         dcm.fused_double_conv(args[0].half(), *args[1:])
     with pytest.raises(ValueError):  # non-contiguous x
         dcm.fused_double_conv(args[0].transpose(1, 2), *args[1:])
+    # bf16 shapes the tensor-core body refuses raise; nothing falls back
+    for cin, c in ((4, 6), (4, 136)):
+        bad = _double_conv_args(1, 8, 8, cin, c, torch.bfloat16, cuda)
+        before = dcm.fused_double_conv.launches
+        with pytest.raises(ValueError):
+            dcm.fused_double_conv(*bad)
+        assert dcm.fused_double_conv.launches == before
+    bf = _double_conv_args(1, 8, 8, 8, 8, torch.bfloat16, cuda)
+    shifted = torch.empty(8 * 8 * 8 + 1, dtype=torch.bfloat16, device=cuda)[1:]
+    with pytest.raises(ValueError):  # x not 16-byte aligned (cp.async)
+        dcm.fused_double_conv(shifted.view(1, 8, 8, 8), *bf[1:])
     x, sup, sp = _stack_inputs(ModelConfig(gwnet=SMALL), 7, 1, 2, torch.float32, cuda)
     with pytest.raises(ValueError):
         gsm.gwnet_stack_forward(x, sup.to(torch.bfloat16), sp)

@@ -330,8 +330,9 @@ def check_dcrnn_stack(torch, dsm, weights, gen):
             with torch.inference_mode():
                 t_m = cuda_ms(lambda: module(x, sup), 3)
             nbytes = dsm.min_bytes(x, sup, sp, 7)
-            nops = dsm.flops(b, 67, 7, 7, cfg.st_gnn_in_dim, cfg.feature_vector_size,
-                             d.rnn_units, d.num_rnn_layers, sup.shape[0], d.max_diffusion_step)
+            dims = (b, 67, 7, 7, cfg.st_gnn_in_dim, cfg.feature_vector_size, d.rnn_units,
+                    d.num_rnn_layers, sup.shape[0], d.max_diffusion_step)
+            nops = dsm.flops(*dims)
             bound_ms, bound_by = bound(nbytes, nops, dn)
             row = {
                 "dtype": dn, "B": b, "max_abs_err": err, "ok": ok, "check": note,
@@ -339,6 +340,10 @@ def check_dcrnn_stack(torch, dsm, weights, gen):
                 "plain_ms": cuda_ms(lambda: dsm.stack_forward_reference(x, sup, sp, **kw), 3),
                 "module_ms": t_m, "library_ms": None, "bytes": nbytes, "flop": nops,
                 "bound_ms": bound_ms, "bound_by": bound_by,
+                # share of the multiply-adds in the projections (term ×
+                # weight, h_top·P); the bf16 body runs them and the chains
+                # on mma.sync, the float32 body neither
+                "proj_share": dsm.flops(*dims, part="proj") / nops,
             }
             log("dcrnn_stack", json.dumps(row))
             rows.append(row)

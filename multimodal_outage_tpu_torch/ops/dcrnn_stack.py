@@ -9,10 +9,12 @@ launch; the .cu header says how.
 
 dcrnn_stack_params splits the DCRNN tree's projection kernels into the
 per-term × (x part, h part) blocks the kernel takes (a copy of
-dcrnn_stack_pallas.py:126-166). dcrnn_stack_forward is the wrapper: on
-CUDA tensors it launches the kernel or raises; on CPU tensors it runs
-stack_forward_reference, the plain PyTorch version the kernel is held
-against.
+dcrnn_stack_pallas.py:126-166). stack_params_to puts them on the device;
+in bfloat16 it also lays them out once in mma.sync B-fragment order
+(stack_fragments, pack_fragments) for the kernel's tensor-core body.
+dcrnn_stack_forward is the wrapper: on CUDA tensors it launches the
+kernel or raises; on CPU tensors it runs stack_forward_reference, the
+plain PyTorch version the kernel is held against.
 """
 
 from __future__ import annotations
@@ -21,10 +23,11 @@ import ctypes
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from multimodal_outage_tpu_torch.ops import _build
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _CELL_KEYS = ("gx", "gh", "gb", "cx", "ch", "cb")
 
 
@@ -72,12 +75,70 @@ def dcrnn_stack_params(
 
 def stack_params_to(sp: Dict[str, Any], device, dtype: torch.dtype) -> Dict[str, Any]:
     """sp with every array contiguous on `device` in `dtype`, as the
-    kernel takes them."""
+    kernel takes them; in bfloat16 also "frags", the projection weights
+    in fragment order (stack_fragments), packed here once."""
     to = lambda v: v.to(device, dtype).contiguous()
-    return {
+    out = {
         "cells": [tuple(to(w) for w in cell) for cell in sp["cells"]],
         "proj_w": to(sp["proj_w"]), "proj_b": to(sp["proj_b"]),
     }
+    if dtype == torch.bfloat16:
+        out["frags"] = stack_fragments(out)
+    return out
+
+
+def _up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def pack_fragments(w: torch.Tensor) -> torch.Tensor:
+    """[nt, K, N] → [nt, Kp/16, Np/8, 32, 4], K padded to 16 and N to 8
+    with zeros: the m16n8k16 B fragments of each term j, k-step s and
+    n-tile q, lane L = 4g + t holding {w[j, 16s+2t, 8q+g], w[j, 16s+2t+1,
+    8q+g], w[j, 16s+2t+8, 8q+g], w[j, 16s+2t+9, 8q+g]}, so a warp reads a
+    fragment as one 8-byte load per lane (csrc/double_conv.cu's order).
+    fragment_slot is the same map element by element."""
+    nt, k, n = w.shape
+    kp, np_ = _up(k, 16), _up(n, 8)
+    wp = F.pad(w, (0, np_ - n, 0, kp - k))
+    # k = 16s + 8h + 2t + p, n = 8q + g  →  [j, s, q, g, t, h, p]
+    return (wp.reshape(nt, kp // 16, 2, 4, 2, np_ // 8, 8)
+            .permute(0, 1, 5, 6, 3, 2, 4).reshape(nt, kp // 16, np_ // 8, 32, 4).contiguous())
+
+
+def unpack_fragments(f: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """pack_fragments' inverse: [nt, Kp/16, Np/8, 32, 4] → [nt, k, n]."""
+    nt, ks, nq = f.shape[:3]
+    return (f.reshape(nt, ks, nq, 8, 4, 2, 2).permute(0, 1, 5, 4, 6, 2, 3)
+            .reshape(nt, 16 * ks, 8 * nq)[:, :k, :n])
+
+
+def fragment_slot(k: int, n: int):
+    """(k-step, n-tile, lane, element) at which pack_fragments stores
+    row k, column n of a term's weights."""
+    kk = k % 16
+    return k // 16, n // 8, 4 * (n % 8) + (kk % 8) // 2, 2 * (kk // 8) + kk % 2
+
+
+def stack_fragments(sp: Dict[str, Any]) -> Dict[str, Any]:
+    """The projection weights of sp (dcrnn_stack_params, then
+    stack_params_to) in fragment order, as the bf16 kernel reads them:
+    per cell (wx, wh, wr) and "proj".
+
+    wx packs each term's x-part gate and candidate columns side by side,
+    the gates padded to 8·⌈2U/8⌉ columns and the candidate to 8·⌈U/8⌉, so
+    one pass over the shared x-part chains feeds both; wh holds the h
+    part of the gates and wr the (r ⊙ h) part of the candidate; proj is
+    the decoder's output projection as one term."""
+    u = sp["proj_w"].shape[0]
+    g8, c8 = _up(2 * u, 8), _up(u, 8)
+    cols = lambda w, m: F.pad(w, (0, m - w.shape[-1]))
+    cells = [
+        (pack_fragments(torch.cat([cols(gx, g8), cols(cx, c8)], -1)),
+         pack_fragments(cols(gh, g8)), pack_fragments(cols(ch, c8)))
+        for gx, gh, _, cx, ch, _ in sp["cells"]
+    ]
+    return {"cells": cells, "proj": pack_fragments(sp["proj_w"][None])}
 
 
 def stack_forward_reference(
@@ -161,7 +222,9 @@ def dcrnn_stack_forward(
 ) -> torch.Tensor:
     """x [B, N, T, Dx0] (float32 or bfloat16) → [B, N, horizon, Dout] in
     x.dtype. supports [S, N, N] and sp (dcrnn_stack_params, then
-    stack_params_to) in x.dtype, contiguous, on x's device."""
+    stack_params_to) in x.dtype, contiguous, on x's device. float32 runs
+    the kernel's CUDA-core body on sp's row-major weights; bfloat16 its
+    tensor-core body on sp["frags"]."""
     kw = dict(horizon=horizon, num_rnn_layers=num_rnn_layers,
               max_diffusion_step=max_diffusion_step, rnn_units=rnn_units)
     if x.device.type == "cpu":
@@ -198,22 +261,33 @@ def dcrnn_stack_forward(
             raise ValueError(f"dcrnn_stack_forward: {name} must be contiguous and 16-byte aligned")
     if any(v % 4 for v in (dx0, dout, u)) or L > 4:
         raise ValueError("dcrnn_stack_forward: widths must be multiples of 4 and layers <= 4")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        frags = _check_fragments(sp, nt, dx0, dout, u, L)
     lib = _lib()
-    smem = lib.dcrnn_stack_smem_bytes(n, u, L, s_count, _DTYPES[x.dtype])
+    smem = lib.dcrnn_stack_smem_bytes(n, u, L, s_count, max_diffusion_step, int(bf16))
     if smem > 227 * 1024:
         raise ValueError(
             f"dcrnn_stack_forward: {smem} bytes of shared memory for N={n}, "
             f"U={u} exceed one block's 227 KB"
         )
-    cells = (ctypes.c_void_p * (12 * L))(*(w.data_ptr() for cell in sp["cells"] for w in cell))
     y = torch.empty((b, n, horizon, dout), dtype=x.dtype, device=x.device)
+    dims = (b, n, t, horizon, L, s_count, max_diffusion_step, dx0, dout, u)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.dcrnn_stack_launch(
-            x.data_ptr(), supports.data_ptr(), cells, sp["proj_w"].data_ptr(),
-            sp["proj_b"].data_ptr(), y.data_ptr(), b, n, t, horizon, L, s_count,
-            max_diffusion_step, dx0, dout, u, _DTYPES[x.dtype], stream,
-        )
+        if bf16:
+            cells = (ctypes.c_void_p * (5 * L * 2))(*(
+                v.data_ptr() for (wx, wh, wr), cell in zip(frags["cells"], sp["cells"])
+                for v in (wx, wh, wr, cell[2], cell[5])))
+            code = lib.dcrnn_stack_launch_bf16(
+                x.data_ptr(), supports.data_ptr(), cells, frags["proj"].data_ptr(),
+                sp["proj_b"].data_ptr(), y.data_ptr(), *dims, stream)
+        else:
+            cells = (ctypes.c_void_p * (12 * L))(
+                *(w.data_ptr() for cell in sp["cells"] for w in cell))
+            code = lib.dcrnn_stack_launch_f32(
+                x.data_ptr(), supports.data_ptr(), cells, sp["proj_w"].data_ptr(),
+                sp["proj_b"].data_ptr(), y.data_ptr(), *dims, stream)
     _build.check(lib, code, "dcrnn_stack")
     dcrnn_stack_forward.launches += 1
     return y
@@ -222,34 +296,61 @@ def dcrnn_stack_forward(
 dcrnn_stack_forward.launches = 0
 
 
+def _check_fragments(sp: Dict[str, Any], nt: int, dx0: int, dout: int, u: int,
+                     L: int) -> Dict[str, Any]:
+    """sp["frags"] (stack_fragments), each of the shape the bf16 kernel
+    reads, contiguous, 16-byte aligned bf16 on the weights' device."""
+    frags = sp.get("frags")
+    if frags is None or len(frags["cells"]) != 2 * L:
+        raise ValueError("dcrnn_stack_forward: bfloat16 needs sp['frags'] "
+                         "(stack_params_to in bfloat16 packs them)")
+    g8, c8, k16 = _up(2 * u, 8) // 8, _up(u, 8) // 8, _up(u, 16) // 16
+    shapes = [("frags.proj", frags["proj"], (1, k16, _up(dout, 8) // 8, 32, 4))]
+    for i, (wx, wh, wr) in enumerate(frags["cells"]):
+        dx = (dx0 if i < L else dout) if i % L == 0 else u
+        shapes += [(f"frags.cells[{i}].wx", wx, (nt, _up(dx, 16) // 16, g8 + c8, 32, 4)),
+                   (f"frags.cells[{i}].wh", wh, (nt, k16, g8, 32, 4)),
+                   (f"frags.cells[{i}].wr", wr, (nt, k16, c8, 32, 4))]
+    dev = sp["proj_w"].device
+    for name, v, shape in shapes:
+        if (tuple(v.shape) != shape or v.dtype != torch.bfloat16 or v.device != dev
+                or not v.is_contiguous() or v.data_ptr() % 16):
+            raise ValueError(f"dcrnn_stack_forward: {name} must be contiguous 16-byte aligned "
+                             f"bfloat16 {shape} on {dev}, got {v.dtype} {tuple(v.shape)}")
+    return frags
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dcrnn_stack")
-    if lib.dcrnn_stack_launch.argtypes is None:
+    if lib.dcrnn_stack_launch_f32.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.dcrnn_stack_launch.argtypes = [p] * 6 + [i] * 11 + [p]
-        lib.dcrnn_stack_launch.restype = i
-        lib.dcrnn_stack_smem_bytes.argtypes = [i] * 5
+        for fn in (lib.dcrnn_stack_launch_f32, lib.dcrnn_stack_launch_bf16):
+            fn.argtypes = [p] * 6 + [i] * 10 + [p]
+            fn.restype = i
+        lib.dcrnn_stack_smem_bytes.argtypes = [i] * 6
         lib.dcrnn_stack_smem_bytes.restype = i
     return lib
 
 
 def flops(b: int, n: int, t: int, horizon: int, dx0: int, dout: int, units: int,
-          n_layers: int, s_count: int, order: int) -> int:
-    """Multiply-adds ×2 of one call (elementwise work not counted). The
-    decoder's first step has the zero GO symbol as input, whose x part
-    contributes nothing and is skipped."""
+          n_layers: int, s_count: int, order: int, part: str = "all") -> int:
+    """Multiply-adds ×2 of one call (elementwise work not counted): part
+    "chains" (the diffusion products), "proj" (term × weight products and
+    the decoder's output projection) or "all". The decoder's first step has
+    the zero GO symbol as input, whose x part contributes nothing and is
+    skipped."""
     nt = s_count * order + 1
+    with_chains, with_proj = part in ("all", "chains"), part in ("all", "proj")
 
-    def cell(dx: int) -> int:
-        chains = s_count * order * n * n * (dx + 2 * units)  # x, h and r⊙h chains
-        proj = nt * n * (dx * 3 * units + units * 2 * units + units * units)
-        return chains + proj
+    def cell(dx: int, x: bool = True) -> int:
+        d = (dx if x else 0) + 2 * units  # x, h and r⊙h chains
+        chains = s_count * order * n * n * d
+        proj = nt * n * ((dx * 3 * units if x else 0) + units * 2 * units + units * units)
+        return with_chains * chains + with_proj * proj
 
-    def x_part(dx: int) -> int:
-        return s_count * order * n * n * dx + nt * n * dx * 3 * units
-
-    per_step = lambda d0: cell(d0) + (n_layers - 1) * cell(units)
-    macs = t * per_step(dx0) + horizon * (per_step(dout) + n * units * dout) - x_part(dout)
+    per_step = lambda d0, x=True: cell(d0, x) + (n_layers - 1) * cell(units)
+    macs = (t * per_step(dx0) + (horizon - 1) * per_step(dout) + per_step(dout, False)
+            + with_proj * horizon * n * units * dout)
     return 2 * b * macs
 
 

@@ -18,8 +18,9 @@ Both read each input pixel and write each output pixel once and keep the
 intermediate in shared memory; the .cu header says how.
 
 fused_double_conv is the wrapper: on a CUDA tensor it launches the kernel
-or raises; on a CPU tensor it runs double_conv_reference, the plain
-PyTorch version the kernel is held against.
+or raises, with gradients from autograd of the plain version; on a CPU
+tensor it runs double_conv_reference, the plain PyTorch version the
+kernel is held against. kernel_takes says which shapes the kernel takes.
 """
 
 from __future__ import annotations
@@ -222,12 +223,26 @@ def launch_config(m: int, h: int, w: int, cin: int, c: int, dtype: torch.dtype,
     return plan.th, plan.tw, plan.smem, bf16_grid(plan.items, sms, _PER_SM[key])
 
 
-def fused_double_conv(x, w1, s1, b1, w2, s2, b2):
-    """x [M, H, W, Cin] → [M, H, W, C] in x.dtype (float32 or bfloat16).
+def kernel_takes(cin: int, c: int, dtype: torch.dtype) -> bool:
+    """Whether the kernel takes a DoubleConv of Cin → C in `dtype` (C a
+    multiple of 4; bf16: C ≤ 128; the smallest tile fits a block). The
+    serving engine sends the other shapes to double_conv_reference, as the
+    JAX engine sends its kernel's (serving.py:338-347)."""
+    if dtype not in _DTYPES or c <= 0 or c % 4:
+        return False
+    th, tw = _TILES[-1]
+    try:
+        if dtype == torch.bfloat16:
+            plan_bf16(1, th, tw, cin, c)
+        else:
+            pick_tile(th, tw, cin, c)
+    except ValueError:
+        return False
+    return True
 
-    w1 [3,3,Cin,C], w2 [3,3,C,C] in x.dtype; s1/b1/s2/b2 [C] float32."""
-    if x.device.type == "cpu":
-        return double_conv_reference(x, w1, s1, b1, w2, s2, b2)
+
+def _launch(x, w1, s1, b1, w2, s2, b2):
+    """The kernel on CUDA tensors, or raise."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_double_conv: unsupported device {x.device}")
     if x.dtype not in _DTYPES:
@@ -268,6 +283,41 @@ def fused_double_conv(x, w1, s1, b1, w2, s2, b2):
     _build.check(lib, code, "double_conv")
     fused_double_conv.launches += 1
     return out
+
+
+class _FusedDoubleConv(torch.autograd.Function):
+    """Forward through the kernel; backward by autograd of the plain
+    version re-materialised from the saved inputs (the JAX custom_vjp,
+    unet_pallas.py:118-134)."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _launch(*args)
+
+    @staticmethod
+    def backward(ctx, dy):
+        leaves = [v.detach().requires_grad_(need)
+                  for v, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [v for v in leaves if v.requires_grad]
+        with torch.enable_grad():
+            y = double_conv_reference(*leaves)
+            grads = iter(torch.autograd.grad(y, wanted, dy))
+        return tuple(next(grads) if v.requires_grad else None for v in leaves)
+
+
+def fused_double_conv(x, w1, s1, b1, w2, s2, b2):
+    """x [M, H, W, Cin] → [M, H, W, C] in x.dtype (float32 or bfloat16),
+    differentiable: the kernel forward on the card, exact gradients of the
+    plain version.
+
+    w1 [3,3,Cin,C], w2 [3,3,C,C] in x.dtype; s1/b1/s2/b2 [C] float32."""
+    args = (x, w1, s1, b1, w2, s2, b2)
+    if x.device.type == "cpu":
+        return double_conv_reference(*args)
+    if torch.is_grad_enabled() and any(v.requires_grad for v in args):
+        return _FusedDoubleConv.apply(*args)
+    return _launch(*args)  # no graph to record (serving runs in inference mode)
 
 
 fused_double_conv.launches = 0

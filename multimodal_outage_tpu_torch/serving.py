@@ -5,7 +5,9 @@ st_gnn="gwnet" and st_gnn="dcrnn". At build it folds every U-Net
 BatchNorm into a per-channel affine (eps 1e-5), drops dropout and
 prepares the st-GNN's weights and supports, once. The forward:
 
-  U-Net contraction   5 DoubleConvs (ops/double_conv.py) with 2×2 max-pools
+  U-Net contraction   5 DoubleConvs (ops/double_conv.py; a width its kernel
+                      does not take, kernel_takes, runs the plain version,
+                      chosen per level at build) with 2×2 max-pools
   bottleneck encoder  2 Dense + ReLU, float32
   Date2Vec            float32 (models/date2vec.py)
   st-GNN              Graph WaveNet: one kernel for the whole stack
@@ -48,6 +50,7 @@ from multimodal_outage_tpu_torch.ops.double_conv import (
     double_conv_reference,
     fold_batchnorm,
     fused_double_conv,
+    kernel_takes,
 )
 from multimodal_outage_tpu_torch.ops.gwnet_stack import (
     adaptive_supports,
@@ -105,17 +108,21 @@ class ServingModel:
         self.device = dev = resolve_device(device)
         self.dtype = dtype = getattr(torch, cfg.compute_dtype)
         self.reference = reference
-        self._double_conv_fn = double_conv_reference if reference else fused_double_conv
         p, bs = variables["params"], variables["batch_stats"]
         f32 = lambda v: torch.as_tensor(v).to(dev, torch.float32).contiguous()
         cast = lambda v: torch.as_tensor(v).to(dev, dtype).contiguous()
 
         def folded(pp, ss):
+            """(DoubleConv function, its weights): the kernel where it takes
+            the level's Cin → C, else the plain version (JAX serving.py:343-347)."""
             s1, b1 = fold_batchnorm(*(f32(v) for v in (
                 pp["bn1"]["scale"], pp["bn1"]["bias"], ss["bn1"]["mean"], ss["bn1"]["var"])))
             s2, b2 = fold_batchnorm(*(f32(v) for v in (
                 pp["bn2"]["scale"], pp["bn2"]["bias"], ss["bn2"]["mean"], ss["bn2"]["var"])))
-            return (cast(pp["conv1"]["kernel"]), s1, b1, cast(pp["conv2"]["kernel"]), s2, b2)
+            w1 = cast(pp["conv1"]["kernel"])
+            kernel = not reference and kernel_takes(w1.shape[2], w1.shape[3], dtype)
+            fn = fused_double_conv if kernel else double_conv_reference
+            return fn, (w1, s1, b1, cast(pp["conv2"]["kernel"]), s2, b2)
 
         cp, cbs = p["contraction"], bs["contraction"]
         self._down = [folded(cp["inc"], cbs["inc"])] + [
@@ -146,6 +153,8 @@ class ServingModel:
         ]
         oc = ep["outc"]["conv"]
         self._outc = (cast(torch.as_tensor(oc["kernel"])[0, 0]), cast(oc["bias"]))
+        # the DoubleConv function of each level, contraction then expansion
+        self.double_conv_fns = tuple(fn for fn, _ in self._down + [u[2] for u in self._up])
 
     def _gwnet_stack(self, st, st_bs, sup) -> Callable[[torch.Tensor], torch.Tensor]:
         """The whole Graph WaveNet stack as one kernel: BN folded, weights
@@ -198,14 +207,14 @@ class ServingModel:
         cfg, dtype = self.cfg, self.dtype
         b, n, t, hh, ww, c_in = x.shape
         m = b * n * t
-        dc = self._double_conv_fn
+        dc = lambda v, fn_args: fn_args[0](v, *fn_args[1])
 
         # contraction
-        y = dc(x.to(self.device, dtype).reshape(m, hh, ww, c_in).contiguous(), *self._down[0])
+        y = dc(x.to(self.device, dtype).reshape(m, hh, ww, c_in).contiguous(), self._down[0])
         skips = [y]
         for i in range(1, cfg.depth + 1):
             y = F.max_pool2d(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).contiguous()
-            y = dc(y, *self._down[i])
+            y = dc(y, self._down[i])
             if i < cfg.depth:
                 skips.append(y)
 
@@ -234,7 +243,7 @@ class ServingModel:
             dh, dw = skip.shape[1] - y.shape[1], skip.shape[2] - y.shape[2]
             if dh or dw:
                 y = F.pad(y, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-            y = dc(torch.cat([skip, y], -1).contiguous(), *conv_args)
+            y = dc(torch.cat([skip, y], -1).contiguous(), conv_args)
         w, bias = self._outc
         y = y @ w + bias
         return y.reshape(b, n, t, hh, ww, -1).float()
@@ -298,9 +307,11 @@ def serve_eval(
             f"no test windows for {test_case!r} at dataset_range "
             f"{data_cfg.dataset_range} and horizon {data_cfg.horizon}"
         )
+    # frames in DataConfig.device_dtype, as the JAX serve_eval and the
+    # port's fit hold them; the engine casts them to its compute dtype
     pipe = DevicePipeline(
         store, data_cfg.mean, data_cfg.std, data_cfg.image_size,
-        serve.dtype, serve.device,
+        getattr(torch, data_cfg.device_dtype), serve.device,
     )
     agg = MeanAggregator()
     timed: List[Dict[str, torch.Tensor]] = []

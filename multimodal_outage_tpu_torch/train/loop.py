@@ -60,6 +60,7 @@ def check_supported(cfg: Config) -> None:
         "svd_aptinit (randomadj=False)": (
             not cfg.model.gwnet.randomadj, "non-fused Graph WaveNet branches"
         ),
+        "d2v_bundle": (cfg.model.d2v_bundle is not None, "A.4 resume and the run options"),
     }
     for what, (asked, item) in todo.items():
         if asked:

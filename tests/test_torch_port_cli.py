@@ -60,3 +60,30 @@ def test_module_entry_point_synth(tmp_path):
 def test_synth_rejects_unknown_storm(tmp_path):
     with pytest.raises(ValueError, match="katrina"):
         cli.run(["synth", "--out_dir", str(tmp_path), "--cases", "katrina"])
+
+
+def test_serve_feeds_frames_in_device_dtype(tiny_store_dir):
+    """serve_eval builds its pipeline in DataConfig.device_dtype, as the
+    JAX package's serve_eval does, whatever the engine computes in: a
+    float32 engine is fed bfloat16-rounded frames by default."""
+    from multimodal_outage_tpu_torch.core.config import DataConfig
+    from multimodal_outage_tpu_torch.data.store import load_store
+    from multimodal_outage_tpu_torch.serving import serve_eval
+
+    class Recorder:
+        dtype, device = torch.float32, torch.device("cpu")
+
+        def __init__(self):
+            self.seen = []
+
+        def __call__(self, x, date_feats):
+            self.seen.append(x.dtype)
+            return x.float()
+
+    store = load_store(tiny_store_dir)
+    for device_dtype, want in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        data_cfg = DataConfig(data_dir=tiny_store_dir, image_size=16, n_counties=4, horizon=3,
+                              dataset_range=12, device_dtype=device_dtype)
+        rec = Recorder()
+        serve_eval(data_cfg, rec, store, "michael", 2, max_batches=2)
+        assert rec.seen == [want, want]

@@ -104,6 +104,55 @@ def test_double_conv_bf16_kernel_batches_and_padding(cuda, m, h, w, cin, c):
     _assert_kernel_matches(got, want, truth)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_double_conv_gradients_through_the_kernel(cuda, dtype):
+    """fused_double_conv on the card: the forward launches the kernel, the
+    gradients of every input equal autograd of the plain version."""
+    args = _double_conv_args(3, 16, 16, 8, 16, dtype, cuda, seed=4)
+    dy = torch.randn(3, 16, 16, 16, generator=torch.Generator(device="cuda").manual_seed(5),
+                     device=cuda).to(dtype)
+    grads = []
+    for fn in (dcm.fused_double_conv, dcm.double_conv_reference):
+        leaves = [a.clone().requires_grad_() for a in args]
+        before = dcm.fused_double_conv.launches
+        y = fn(*leaves)
+        assert y.requires_grad
+        torch.autograd.backward(y, dy)
+        grads.append([v.grad for v in leaves])
+        assert dcm.fused_double_conv.launches == before + (fn is dcm.fused_double_conv)
+    # the same plain backward from the same inputs; cuDNN's weight
+    # gradient may sum in another order from call to call, and in bf16 that
+    # can move a stored gradient by one ulp (2^-8 relative)
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol * float(want.abs().max()))
+    assert all(float(g.abs().max()) > 0 for g in grads[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_default_engine_takes_the_kernel_at_every_level(cuda, dtype):
+    """The default U-Net (base_channels=4): all 9 DoubleConv levels go to
+    the kernel; base_channels=2 sends the two C = 2 levels to the plain
+    version and still serves."""
+    n, t, h = 2, 2, 32
+    x = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((1, n, t, h, h, 1)).astype(np.float32)).to(cuda)
+    feats = torch.tensor([0, 0, 0, 2022, 9, 26], dtype=torch.float32).repeat(1, t, 1).to(cuda)
+    for base, want in ((4, [True] * 9), (2, [False] + [True] * 7 + [False])):
+        cfg = ModelConfig(compute_dtype=dtype, base_channels=base)
+        var = weights.init_variables(cfg, t, n, seed=0, image_size=h)
+        serve = ServingModel(cfg, var, torch.eye(n)[None], horizon=t, device="cuda")
+        assert [fn is dcm.fused_double_conv for fn in serve.double_conv_fns] == want
+        before = dcm.fused_double_conv.launches
+        y = serve(x, feats)
+        torch.cuda.synchronize()
+        assert dcm.fused_double_conv.launches - before == sum(want)
+        assert torch.isfinite(y).all()
+
+
 def _stack_inputs(cfg, n, b, t, dtype, device):
     var = weights.init_variables(cfg, t, n, seed=2, image_size=16)
     st, bs = var["params"]["st_gnn"], var["batch_stats"]["st_gnn"]
@@ -304,14 +353,14 @@ def test_gwnet_layer_gradients_through_the_kernel(cuda):
     assert grads[0][1].abs().max() > 0
 
 
-def _dcrnn_case(full: bool, b: int, dtype, device, layers=2, k=2):
+def _dcrnn_case(full: bool, b: int, dtype, device, layers=2, k=2, units=8, dout=12, n=6):
     if full:  # the default DCRNN on the Florida graph (dual random walk, S=2)
         cfg, n, t = ModelConfig(st_gnn="dcrnn"), 67, 7
     else:
-        cfg = ModelConfig(st_gnn="dcrnn", feature_vector_size=12, time_embed_size=4,
-                          dcrnn=DCRNNConfig(rnn_units=8, num_rnn_layers=layers,
+        cfg = ModelConfig(st_gnn="dcrnn", feature_vector_size=dout, time_embed_size=4,
+                          dcrnn=DCRNNConfig(rnn_units=units, num_rnn_layers=layers,
                                             max_diffusion_step=k))
-        n, t = 6, 4
+        t = 4
     d = cfg.dcrnn
     st = weights.init_variables(cfg, t, n, seed=2, image_size=128 if full else 16)["params"]["st_gnn"]
     sup = torch.from_numpy(model_supports(cfg, n)).to(device, dtype)
@@ -341,6 +390,22 @@ def test_dcrnn_stack_kernel_matches_plain(cuda, dtype, full, b, layers, k):
             "proj_w": f32(sp["proj_w"]), "proj_b": f32(sp["proj_b"])}
     truth = dsm.stack_forward_reference(x.float(), sup.float(), sp32, **kw)
     _assert_kernel_matches(got, want, want if dtype == torch.float32 else truth)
+
+
+@pytest.mark.cuda
+def test_dcrnn_stack_bf16_kernel_padded_widths(cuda):
+    """bf16 at widths that pad every tile: N=19 node rows (2 m-tiles),
+    U=12 (K to 16, the gates to 24 and the candidate to 16 columns),
+    Dx0=24 and Dout=20 (K to 32, N to 24), at B=2."""
+    x, sup, sp, kw = _dcrnn_case(False, 2, torch.bfloat16, cuda, units=12, dout=20, n=19)
+    before = dsm.dcrnn_stack_forward.launches
+    got = dsm.dcrnn_stack_forward(x, sup, sp, **kw)
+    torch.cuda.synchronize()
+    assert dsm.dcrnn_stack_forward.launches == before + 1
+    want = dsm.stack_forward_reference(x, sup, sp, **kw)
+    truth = dsm.stack_forward_reference(x.float(), sup.float(),
+                                        dsm.stack_params_to(sp, cuda, torch.float32), **kw)
+    _assert_kernel_matches(got, want, truth)
 
 
 @pytest.mark.cuda
@@ -388,6 +453,9 @@ def test_layer_and_dcrnn_wrappers_reject_bad_inputs(cuda):
         dsm.dcrnn_stack_forward(x, sup.to(torch.bfloat16), sp, **kw)
     with pytest.raises(TypeError):
         dsm.dcrnn_stack_forward(x.half(), sup, sp, **kw)
+    xb, supb, spb, kw = _dcrnn_case(False, 2, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="frags"):  # bf16 weights not in fragment order
+        dsm.dcrnn_stack_forward(xb, supb, {k: v for k, v in spb.items() if k != "frags"}, **kw)
 
 
 def test_layer_and_dcrnn_wrappers_reject_other_devices():

@@ -123,6 +123,70 @@ def test_plain_stack_rounds_where_the_kernel_rounds():
     assert 0 < err < 0.05 * float(f32.abs().max())
 
 
+# (K, N) of the bf16 kernel's projections: full width (layer 0's x part
+# Dx0=320 and the decoder's Dout=256 onto the 3U=192 gate|candidate
+# columns, layer 1's x part, the h part onto 2U, r⊙h onto U, the output
+# projection U→Dout) and tiny ones it pads (U=8, Dout=12, Dx=16, U=12)
+FRAG_SHAPES = [(320, 192), (256, 192), (64, 192), (64, 128), (64, 64), (64, 256),
+               (16, 24), (8, 16), (8, 8), (8, 12), (12, 20), (24, 40)]
+
+
+@pytest.mark.parametrize("k,n", FRAG_SHAPES)
+def test_fragments_read_through_the_index_map_give_the_product(k, n):
+    """term @ w with w read from the packed buffer element by element
+    through fragment_slot equals term @ w exactly; unpacking gives back w
+    and zeros in the padding."""
+    rng = np.random.default_rng(k * 1000 + n)
+    w = torch.from_numpy(rng.standard_normal((3, k, n)).astype(np.float32)).to(torch.bfloat16)
+    term = torch.from_numpy(rng.standard_normal((3, 80, k)).astype(np.float32)).to(torch.bfloat16)
+    f = dsm.pack_fragments(w)
+    kp, np_ = -(-k // 16) * 16, -(-n // 8) * 8
+    assert tuple(f.shape) == (3, kp // 16, np_ // 8, 32, 4) and f.is_contiguous()
+    s, q, lane, e = dsm.fragment_slot(np.arange(k)[:, None], np.arange(n)[None, :])
+    read = f[:, torch.from_numpy(s), torch.from_numpy(q), torch.from_numpy(lane), torch.from_numpy(e)]
+    assert torch.equal(term.float() @ read.float(), term.float() @ w.float())
+    full = dsm.unpack_fragments(f, kp, np_)
+    assert torch.equal(full[:, :k, :n], w)
+    assert not full[:, k:].any() and not full[:, :, n:].any()
+    # a lane's four values: rows 2t, 2t+1, 2t+8, 2t+9 of column g
+    g, t = 3, 2
+    want = [w[1, r, g] if r < k and g < n else 0 for r in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)]
+    assert [float(v) for v in f[1, 0, 0, 4 * g + t]] == [float(v) for v in want]
+
+
+@pytest.mark.parametrize("units,dx0,dout", [(64, 320, 256), (8, 16, 12), (12, 24, 20)])
+def test_stack_fragments_lay_out_every_projection(units, dx0, dout):
+    """stack_params_to in bf16 adds the fragments: per cell the x part of
+    the gates and the candidate side by side, the h part, the r⊙h part,
+    and the output projection; float32 adds none."""
+    rng = np.random.default_rng(units)
+    r = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    nt, u = 5, units
+    cells = [(r(nt, dx, 2 * u), r(nt, u, 2 * u), r(1, 2 * u), r(nt, dx, u), r(nt, u, u), r(1, u))
+             for dx in (dx0, u, dout, u)]
+    sp = {"cells": cells, "proj_w": r(u, dout), "proj_b": r(1, dout)}
+    assert "frags" not in dsm.stack_params_to(sp, "cpu", torch.float32)
+    bf = dsm.stack_params_to(sp, "cpu", torch.bfloat16)
+    g8, c8 = -(-2 * u // 8) * 8, -(-u // 8) * 8
+    for (wx, wh, wr), (gx, gh, _, cx, ch, _) in zip(bf["frags"]["cells"], bf["cells"]):
+        dx = gx.shape[1]
+        x_cols = dsm.unpack_fragments(wx, dx, g8 + c8)
+        assert torch.equal(x_cols[..., :2 * u], gx) and torch.equal(x_cols[..., g8:g8 + u], cx)
+        assert not x_cols[..., 2 * u:g8].any() and not x_cols[..., g8 + u:].any()
+        assert torch.equal(dsm.unpack_fragments(wh, u, 2 * u), gh)
+        assert torch.equal(dsm.unpack_fragments(wr, u, u), ch)
+    assert torch.equal(dsm.unpack_fragments(bf["frags"]["proj"], u, dout)[0], bf["proj_w"])
+
+
+def test_flops_split_into_chains_and_projections():
+    """At full width (one B=1 forward) the projections are ~75% of the
+    multiply-adds; the two parts sum to the whole."""
+    args = (1, 67, 7, 7, 320, 256, 64, 2, 2, 2)
+    parts = [dsm.flops(*args, part=p) for p in ("chains", "proj")]
+    assert sum(parts) == dsm.flops(*args)
+    assert 0.7 < parts[1] / sum(parts) < 0.8
+
+
 H = 16
 
 

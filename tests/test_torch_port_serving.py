@@ -15,13 +15,14 @@ from multimodal_outage_tpu.models.fusion import build_model
 from multimodal_outage_tpu.serving import ServingModel as JaxServingModel
 from multimodal_outage_tpu_torch import weights
 from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
+from multimodal_outage_tpu_torch.ops.double_conv import fused_double_conv, kernel_takes
 from multimodal_outage_tpu_torch.serving import ServingModel
 
 N, T, H = 4, 2, 16
 
 
-def _variables_and_inputs(b, seed=5):
-    cfg = JaxModelConfig(compute_dtype="float32")
+def _variables_and_inputs(b, seed=5, **cfg_kw):
+    cfg = JaxModelConfig(compute_dtype="float32", **cfg_kw)
     model = build_model(cfg, horizon=T)
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((b, N, T, H, H, 1)).astype(np.float32)
@@ -56,6 +57,30 @@ def test_serving_matches_jax_engine_and_flax_eval(b):
     assert y.dtype == torch.float32 and tuple(y.shape) == (b, N, T, H, H, 1)
     np.testing.assert_allclose(y.numpy(), y_jax, atol=5e-5, rtol=1e-4)
     np.testing.assert_allclose(y.numpy(), y_flax, atol=5e-5, rtol=1e-4)
+
+
+def test_narrow_unet_routes_per_level_and_matches_jax_engine():
+    """base_channels=2: the levels of C = 2 (the stem and the last
+    expansion) go to the plain version, the rest to the kernel, chosen at
+    engine build; the forward matches the JAX engine."""
+    cfg, model, variables, x, feats, sup = _variables_and_inputs(2, seed=7, base_channels=2)
+    jserve = JaxServingModel(cfg, variables, jnp.asarray(sup), use_pallas=True, interpret=True)
+    y_jax = np.asarray(jserve(jnp.asarray(x), jnp.asarray(feats)))
+    tvars = weights.from_flax(jax.tree.map(np.asarray, variables))
+    serve = ServingModel(ModelConfig(compute_dtype="float32", base_channels=2), tvars,
+                         torch.from_numpy(sup), horizon=T, device="cpu")
+    assert [fn is fused_double_conv for fn in serve.double_conv_fns] == [False] + [True] * 7 + [False]
+    y = serve(torch.from_numpy(x), torch.from_numpy(feats))
+    np.testing.assert_allclose(y.numpy(), y_jax, atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("cin,c,dtype,takes", [
+    (1, 4, torch.bfloat16, True), (32, 64, torch.bfloat16, True), (1, 2, torch.bfloat16, False),
+    (128, 256, torch.bfloat16, False), (6, 6, torch.float32, False), (32, 64, torch.float32, True),
+    (4, 4, torch.float16, False),
+])
+def test_kernel_takes(cin, c, dtype, takes):
+    assert kernel_takes(cin, c, dtype) is takes
 
 
 def test_per_layer_gwnet_engine_matches_jax_engine():

@@ -403,6 +403,14 @@ def test_unported_train_knobs_raise(train):
         loop.check_supported(Config(train=train))
 
 
+def test_d2v_bundle_raises_until_installed():
+    """A pretrained Date2Vec bundle is not installed yet: asking for one
+    raises instead of training with a random Date2Vec."""
+    with pytest.raises(NotImplementedError, match="A.4"):
+        loop.check_supported(Config(model=ModelConfig(d2v_bundle="d2v.npz")))
+    loop.check_supported(Config())
+
+
 def test_config_copies_match_jax_defaults():
     for ours, theirs in ((TrainConfig(), JaxTrainConfig()), (Config(), JaxConfig())):
         assert json.dumps(dataclasses.asdict(ours), default=str, sort_keys=True) == \

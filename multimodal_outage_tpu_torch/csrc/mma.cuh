@@ -1,5 +1,5 @@
 // Warp-level tensor-core helpers for the bf16 bodies (double_conv.cu,
-// dcrnn_stack.cu): packing, shared-memory addresses, ldmatrix fragment
+// dcrnn_stack.cu, gwnet_stack.cu): packing, shared-memory addresses, ldmatrix fragment
 // loads and the m16n8k16 bf16 mma.sync with float32 accumulation.
 #pragma once
 

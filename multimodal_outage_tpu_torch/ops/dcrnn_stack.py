@@ -11,7 +11,8 @@ dcrnn_stack_params splits the DCRNN tree's projection kernels into the
 per-term × (x part, h part) blocks the kernel takes (a copy of
 dcrnn_stack_pallas.py:126-166). stack_params_to puts them on the device;
 in bfloat16 it also lays them out once in mma.sync B-fragment order
-(stack_fragments, pack_fragments) for the kernel's tensor-core body.
+(stack_fragments, ops/fragments.py pack_fragments) for the kernel's
+tensor-core body.
 dcrnn_stack_forward is the wrapper: on CUDA tensors it launches the
 kernel or raises; on CPU tensors it runs stack_forward_reference, the
 plain PyTorch version the kernel is held against.
@@ -26,6 +27,12 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_outage_tpu_torch.ops import _build
+from multimodal_outage_tpu_torch.ops.fragments import (  # noqa: F401 (re-exported)
+    _up,
+    fragment_slot,
+    pack_fragments,
+    unpack_fragments,
+)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _CELL_KEYS = ("gx", "gh", "gb", "cx", "ch", "cb")
@@ -85,39 +92,6 @@ def stack_params_to(sp: Dict[str, Any], device, dtype: torch.dtype) -> Dict[str,
     if dtype == torch.bfloat16:
         out["frags"] = stack_fragments(out)
     return out
-
-
-def _up(v: int, m: int) -> int:
-    return -(-v // m) * m
-
-
-def pack_fragments(w: torch.Tensor) -> torch.Tensor:
-    """[nt, K, N] → [nt, Kp/16, Np/8, 32, 4], K padded to 16 and N to 8
-    with zeros: the m16n8k16 B fragments of each term j, k-step s and
-    n-tile q, lane L = 4g + t holding {w[j, 16s+2t, 8q+g], w[j, 16s+2t+1,
-    8q+g], w[j, 16s+2t+8, 8q+g], w[j, 16s+2t+9, 8q+g]}, so a warp reads a
-    fragment as one 8-byte load per lane (csrc/double_conv.cu's order).
-    fragment_slot is the same map element by element."""
-    nt, k, n = w.shape
-    kp, np_ = _up(k, 16), _up(n, 8)
-    wp = F.pad(w, (0, np_ - n, 0, kp - k))
-    # k = 16s + 8h + 2t + p, n = 8q + g  →  [j, s, q, g, t, h, p]
-    return (wp.reshape(nt, kp // 16, 2, 4, 2, np_ // 8, 8)
-            .permute(0, 1, 5, 6, 3, 2, 4).reshape(nt, kp // 16, np_ // 8, 32, 4).contiguous())
-
-
-def unpack_fragments(f: torch.Tensor, k: int, n: int) -> torch.Tensor:
-    """pack_fragments' inverse: [nt, Kp/16, Np/8, 32, 4] → [nt, k, n]."""
-    nt, ks, nq = f.shape[:3]
-    return (f.reshape(nt, ks, nq, 8, 4, 2, 2).permute(0, 1, 5, 4, 6, 2, 3)
-            .reshape(nt, 16 * ks, 8 * nq)[:, :k, :n])
-
-
-def fragment_slot(k: int, n: int):
-    """(k-step, n-tile, lane, element) at which pack_fragments stores
-    row k, column n of a term's weights."""
-    kk = k % 16
-    return k // 16, n // 8, 4 * (n % 8) + (kk % 8) // 2, 2 * (kk // 8) + kk % 2
 
 
 def stack_fragments(sp: Dict[str, Any]) -> Dict[str, Any]:

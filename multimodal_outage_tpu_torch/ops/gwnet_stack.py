@@ -7,6 +7,10 @@ small products, bound by latency and launches rather than FLOPs, so the
 whole stack is one launch with every activation in shared memory; the
 .cu header says how.
 
+stack_params_from_module stacks the Graph WaveNet tree into the arrays
+the kernel takes. Its bf16 body runs every product on the tensor cores
+from weights in mma.sync B-fragment order: stack_fragments lays them out
+once (at engine build), and the wrapper takes them as sp["frags"].
 gwnet_stack_forward is the wrapper: on a CUDA tensor it launches the
 kernel or raises; on a CPU tensor it runs stack_forward_reference, the
 plain PyTorch version the kernel is held against.
@@ -18,10 +22,12 @@ import ctypes
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from multimodal_outage_tpu_torch.models.gwnet import adaptive_adjacency
 from multimodal_outage_tpu_torch.ops import _build
 from multimodal_outage_tpu_torch.ops.double_conv import fold_batchnorm
+from multimodal_outage_tpu_torch.ops.fragments import _up, pack_fragments
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _F32_KEYS = ("bc", "aa", "ab")
@@ -76,6 +82,39 @@ def stack_params_from_module(
     return {
         k: v.contiguous() if k in _F32_KEYS else v.to(dtype).contiguous()
         for k, v in sp.items()
+    }
+
+
+def interleaved_column(c: int, gate: bool) -> int:
+    """Column of stack_fragments' interleaved [Wf | Wg] that holds filter
+    column c (gate=False) or gate column c (gate=True): blocks of
+    8 filter columns and the same 8 gate columns alternate, so both land
+    in the same lane and element of n-tiles 2q and 2q + 1."""
+    return 16 * (c // 8) + 8 * gate + c % 8
+
+
+def stack_fragments(sp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The weights of sp (stack_params_from_module, bfloat16) in
+    fragment order (ops/fragments.py pack_fragments), as the kernel's bf16
+    body reads them: "start", "wfg" (filter and gate interleaved, see
+    interleaved_column; Cd padded to 8), "ws", "wc" (each term's rows
+    padded to 16, the term buffer's layout), "e1" and "e2"."""
+    n_layers, c, cd2 = sp["wfg"].shape
+    cd = cd2 // 2
+    cd16 = _up(cd, 16)
+    cols = torch.tensor([interleaved_column(i, gate) for gate in (False, True) for i in range(cd)],
+                        device=sp["wfg"].device)
+    wfg = sp["wfg"].new_zeros(n_layers, c, 2 * _up(cd, 8))
+    wfg[..., cols] = sp["wfg"]
+    nt = sp["wc"].shape[1] // cd
+    wc = F.pad(sp["wc"].reshape(n_layers, nt, cd, -1), (0, 0, 0, cd16 - cd))
+    return {
+        "start": pack_fragments(sp["start_w"][None]),
+        "wfg": pack_fragments(wfg),
+        "ws": pack_fragments(sp["ws"]),
+        "wc": pack_fragments(wc.reshape(n_layers, nt * cd16, -1)),
+        "e1": pack_fragments(sp["e1w"][None]),
+        "e2": pack_fragments(sp["e2w"][None]),
     }
 
 
@@ -136,7 +175,9 @@ def gwnet_stack_forward(
     """x [B, N, T, Cin] (float32 or bfloat16) → [B, N, T, Cout] in x.dtype.
 
     supports [S, N, N] and sp (stack_params_from_module) in x.dtype, bar
-    sp's float32 bc/aa/ab."""
+    sp's float32 bc/aa/ab. float32 runs the kernel's CUDA-core body on
+    sp's row-major weights; bfloat16 its tensor-core body on sp["frags"]
+    (stack_fragments), with sp's biases."""
     if x.device.type == "cpu":
         return stack_forward_reference(x, supports, sp, order)
     if x.device.type != "cuda":
@@ -170,8 +211,12 @@ def gwnet_stack_forward(
             raise ValueError(f"gwnet_stack_forward: {name} must be contiguous and 16-byte aligned")
     if any(v % 4 for v in (c, cd, cs, ce, cout)):
         raise ValueError("gwnet_stack_forward: channel widths must be multiples of 4")
+    weights = dict(sp)
+    if x.dtype == torch.bfloat16:  # the tensor-core body reads the fragments in place of the weights
+        frags = _check_fragments(sp, s_count * order + 1)
+        weights.update({k: frags[f] for k, f in _FRAG_OF.items()})
     lib = _lib()
-    smem = lib.gwnet_stack_smem_bytes(n, c, cd, cs, ce, s_count, order)
+    smem = smem_bytes(n, cin, c, cd, cs, ce, cout, s_count, order, x.dtype)
     if smem > 227 * 1024:
         raise ValueError(
             f"gwnet_stack_forward: {smem} bytes of shared memory for N={n} "
@@ -181,7 +226,7 @@ def gwnet_stack_forward(
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.gwnet_stack_launch(
-            x.data_ptr(), supports.data_ptr(), *(sp[k].data_ptr() for k in _KEYS),
+            x.data_ptr(), supports.data_ptr(), *(weights[k].data_ptr() for k in _KEYS),
             y.data_ptr(), b, n, t, cin, c, cd, cs, ce, cout, s_count, order,
             n_layers, _DTYPES[x.dtype], stream,
         )
@@ -192,6 +237,44 @@ def gwnet_stack_forward(
 
 gwnet_stack_forward.launches = 0
 
+# the packed fragments the bf16 body reads in place of these weights
+_FRAG_OF = {"start_w": "start", "wfg": "wfg", "ws": "ws", "wc": "wc", "e1w": "e1", "e2w": "e2"}
+
+
+def _check_fragments(sp: Dict[str, torch.Tensor], nt: int) -> Dict[str, torch.Tensor]:
+    """sp["frags"] (stack_fragments), each of the shape the bf16 kernel
+    reads, contiguous, 16-byte aligned bf16 on the weights' device."""
+    frags = sp.get("frags")
+    if frags is None:
+        raise ValueError("gwnet_stack_forward: bfloat16 needs sp['frags'] "
+                         "(stack_fragments packs them)")
+    n_layers, c, cd2 = sp["wfg"].shape
+    cd, cin, cs = cd2 // 2, sp["start_w"].shape[0], sp["ws"].shape[2]
+    ce, cout = sp["e1w"].shape[1], sp["e2w"].shape[1]
+    k16, n8 = lambda v: _up(v, 16) // 16, lambda v: _up(v, 8) // 8
+    shapes = {
+        "start": (1, k16(cin), n8(c)), "wfg": (n_layers, k16(c), 2 * n8(cd)),
+        "ws": (n_layers, k16(cd), n8(cs)), "wc": (n_layers, nt * k16(cd), n8(c)),
+        "e1": (1, k16(cs), n8(ce)), "e2": (1, k16(ce), n8(cout)),
+    }
+    dev = sp["wfg"].device
+    for name, shape in shapes.items():
+        v, shape = frags.get(name), shape + (32, 4)
+        if (v is None or tuple(v.shape) != shape or v.dtype != torch.bfloat16
+                or v.device != dev or not v.is_contiguous() or v.data_ptr() % 16):
+            got = None if v is None else (v.dtype, tuple(v.shape), v.device)
+            raise ValueError(f"gwnet_stack_forward: frags.{name} must be contiguous 16-byte "
+                             f"aligned bfloat16 {shape} on {dev}, got {got}")
+    return frags
+
+
+def smem_bytes(n: int, cin: int, c: int, cd: int, cs: int, ce: int, cout: int,
+               s_count: int, order: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one block of the kernel's body for dtype
+    (the float32 and the bf16 bodies lay it out differently)."""
+    return _lib().gwnet_stack_smem_bytes(n, cin, c, cd, cs, ce, cout, s_count, order,
+                                         int(dtype == torch.bfloat16))
+
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("gwnet_stack")
@@ -199,7 +282,7 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gwnet_stack_launch.argtypes = [p] * 17 + [i] * 13 + [p]
         lib.gwnet_stack_launch.restype = i
-        lib.gwnet_stack_smem_bytes.argtypes = [i] * 7
+        lib.gwnet_stack_smem_bytes.argtypes = [i] * 10
         lib.gwnet_stack_smem_bytes.restype = i
     return lib
 
@@ -218,7 +301,7 @@ def flops(b: int, n: int, t: int, sp: Dict[str, torch.Tensor], s_count: int, ord
 
 def min_bytes(x: torch.Tensor, supports: torch.Tensor, sp: Dict[str, torch.Tensor], cout: int) -> int:
     """Bytes one call must move: inputs and weights read once, y written once."""
-    tensors = [x, supports, *sp.values()]
+    tensors = [x, supports, *(sp[k] for k in _KEYS)]
     return sum(v.numel() * v.element_size() for v in tensors) + (
         x.numel() // x.shape[-1] * cout * x.element_size()
     )

@@ -56,6 +56,7 @@ from multimodal_outage_tpu_torch.ops.gwnet_stack import (
     adaptive_supports,
     gwnet_stack_forward,
     stack_forward_reference,
+    stack_fragments,
     stack_params_from_module,
 )
 from multimodal_outage_tpu_torch.weights import conv_transpose_weight, load_variables
@@ -158,10 +159,13 @@ class ServingModel:
 
     def _gwnet_stack(self, st, st_bs, sup) -> Callable[[torch.Tensor], torch.Tensor]:
         """The whole Graph WaveNet stack as one kernel: BN folded, weights
-        stacked and static + adaptive supports baked here."""
+        stacked (in bf16 also packed in fragment order for the kernel's
+        tensor-core body) and static + adaptive supports baked here."""
         g, dev, dtype = self.cfg.gwnet, self.device, self.dtype
         sp = {k: v.to(dev) for k, v in stack_params_from_module(
             st, st_bs, g.blocks * g.layers, dtype).items()}
+        if dtype == torch.bfloat16:
+            sp["frags"] = stack_fragments(sp)
         nodevec = lambda k: torch.as_tensor(st[k]).to(dev, torch.float32) if g.addaptadj else None
         all_sup = adaptive_supports(sup, nodevec("nodevec1"), nodevec("nodevec2"), dtype)
         fn = stack_forward_reference if self.reference else gwnet_stack_forward

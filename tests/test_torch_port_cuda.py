@@ -163,6 +163,8 @@ def _stack_inputs(cfg, n, b, t, dtype, device):
     g = cfg.gwnet
     sp = {k: v.to(device) for k, v in gsm.stack_params_from_module(
         st, bs, g.blocks * g.layers, dtype).items()}
+    if dtype == torch.bfloat16:  # the kernel's tensor-core body reads these
+        sp["frags"] = gsm.stack_fragments(sp)
     sup = gsm.adaptive_supports(
         torch.stack([torch.eye(n)] * n_static_supports(g.adjtype)),
         st.get("nodevec1"), st.get("nodevec2"), dtype,
@@ -195,9 +197,51 @@ def test_stack_kernel_matches_plain(cuda, dtype, gw, n, b):
     torch.cuda.synchronize()
     assert gsm.gwnet_stack_forward.launches == before + 1
     want = gsm.stack_forward_reference(x, sup, sp, order=gw.order)
-    truth = gsm.stack_forward_reference(
-        x.float(), sup.float(), {k: v.float() for k, v in sp.items()}, order=gw.order)
+    truth = gsm.stack_forward_reference(x.float(), sup.float(), _f32(sp), order=gw.order)
     _assert_kernel_matches(got, want, truth)
+
+
+def _f32(sp):
+    """The stack's weights in float32, without the bf16 fragments."""
+    return {k: v.float() for k, v in sp.items() if k != "frags"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stack_kernel_padded_widths(cuda, dtype):
+    """Widths that pad every tile of the tensor-core body through all 8
+    layers: N=19 node rows (2 m-tiles), C=Cd=12 (K to 16, the filter and
+    gate blocks to 16), Cs=20, Ce=36 and Cout=20 (K to 32 / 48, N to 24 /
+    40), Cin=24, at B=2."""
+    gw = GWNetConfig(residual_channels=12, dilation_channels=12, skip_channels=20,
+                     end_channels=36, node_embed_dim=4)
+    cfg = ModelConfig(gwnet=gw, feature_vector_size=20, time_embed_size=4)
+    x, sup, sp = _stack_inputs(cfg, 19, 2, 3, dtype, cuda)
+    before = gsm.gwnet_stack_forward.launches
+    got = gsm.gwnet_stack_forward(x, sup, sp, order=gw.order)
+    torch.cuda.synchronize()
+    assert gsm.gwnet_stack_forward.launches == before + 1
+    want = gsm.stack_forward_reference(x, sup, sp, order=gw.order)
+    truth = gsm.stack_forward_reference(x.float(), sup.float(), _f32(sp), order=gw.order)
+    _assert_kernel_matches(got, want, want if dtype == torch.float32 else truth)
+
+
+@pytest.mark.cuda
+def test_stack_wrapper_needs_fragments_in_bf16(cuda):
+    """bf16 without sp["frags"], or with a fragment of the wrong shape,
+    raises before any launch; float32 needs none."""
+    x, sup, sp = _stack_inputs(ModelConfig(gwnet=SMALL), 7, 1, 2, torch.bfloat16, cuda)
+    before = gsm.gwnet_stack_forward.launches
+    with pytest.raises(ValueError, match="frags"):
+        gsm.gwnet_stack_forward(x, sup, {k: v for k, v in sp.items() if k != "frags"})
+    short = dict(sp, frags=dict(sp["frags"], wc=sp["frags"]["wc"][:, :-1].contiguous()))
+    with pytest.raises(ValueError, match="frags.wc"):
+        gsm.gwnet_stack_forward(x, sup, short)
+    assert gsm.gwnet_stack_forward.launches == before
+    x32, sup32, sp32 = _stack_inputs(ModelConfig(gwnet=SMALL), 7, 1, 2, torch.float32, cuda)
+    gsm.gwnet_stack_forward(x32, sup32, sp32)
+    torch.cuda.synchronize()
+    assert gsm.gwnet_stack_forward.launches == before + 1
 
 
 @pytest.mark.cuda

@@ -23,10 +23,13 @@ from __future__ import annotations
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
+
+# CUDA timing helpers shared with the kernel timing tools
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
+from _timing import card, device_ms, events_ms, events_ms_cold, flush_buffer  # noqa: E402
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 CUDA-core
@@ -72,21 +75,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean ms per call over `reps` back-to-back calls, CUDA events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def compare(got, want, truth=None):
     """(max |got − want|, ok, note). float32 (truth None): elementwise
     within F32_TOL. bfloat16: got's error against the float32 `truth` is
@@ -107,13 +95,6 @@ def compare(got, want, truth=None):
     r_rms = float(e_got.square().mean().sqrt()) / (float(e_want.square().mean().sqrt()) + floor)
     ok = r_max <= BF16_MAX_RATIO and r_rms <= BF16_RMS_RATIO
     return err, ok, f"err vs f32: max ratio {r_max:.3f} rms ratio {r_rms:.3f}, plain max {float(e_want.max()):.4g}"
-
-
-def smi_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
 
 
 def check_double_conv(torch, F, dcm, gen):
@@ -148,9 +129,9 @@ def check_double_conv(torch, F, dcm, gen):
                 return torch.relu(F.conv2d(y, k2, padding=1) * v(s2) + v(b2))
 
             reps = 5 if h >= 64 else 10
-            t_k = cuda_ms(lambda: dcm.fused_double_conv(*args), reps)
-            t_p = cuda_ms(lambda: dcm.double_conv_reference(*args), reps)
-            t_l = cuda_ms(library, reps)
+            t_k = events_ms(lambda: dcm.fused_double_conv(*args), reps)
+            t_p = events_ms(lambda: dcm.double_conv_reference(*args), reps)
+            t_l = events_ms(library, reps)
             nbytes = dcm.min_bytes(M_B1, h, h, cin, c, x.element_size())
             nops = dcm.flops(M_B1, h, h, cin, c)
             t_bytes, t_ops = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * nops / PEAK_OPS[dn]
@@ -209,8 +190,8 @@ def check_gwnet_stack(torch, gsm, weights, cfg, gen):
                 )
             torch.cuda.synchronize()
             err, ok, note = compare(got, want, truth)
-            t_k = cuda_ms(lambda: gsm.gwnet_stack_forward(x, sup, sp, order=cfg.gwnet.order), 20)
-            t_p = cuda_ms(lambda: gsm.stack_forward_reference(x, sup, sp, order=cfg.gwnet.order), 5)
+            t_k = events_ms(lambda: gsm.gwnet_stack_forward(x, sup, sp, order=cfg.gwnet.order), 20)
+            t_p = events_ms(lambda: gsm.stack_forward_reference(x, sup, sp, order=cfg.gwnet.order), 5)
             nbytes = gsm.min_bytes(x, sup, sp, sp["e2w"].shape[1])
             nops = gsm.flops(b, 67, 7, sp, sup.shape[0], cfg.gwnet.order)
             t_bytes, t_ops = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * nops / PEAK_OPS[dn]
@@ -237,10 +218,15 @@ def bound(nbytes: int, nops: int, dtype_name: str):
 def check_gwnet_layer(torch, glm, gsm, weights, cfg, gen):
     """Phase 3d: the per-layer Graph WaveNet kernel at B = 1, 8, 16, T=7,
     N=67, C=Cd=32, Cs=256, order 2, S=2 (identity + the softmax adaptive
-    adjacency), bf16 and float32; and at B=8 in float32 the gradients
+    adjacency), bf16 (the tensor-core body) and float32: CUDA events per
+    call back to back (ms) and with the L2 flushed before each call
+    (cold_ms), both of which include the host's enqueue, and the kernel's
+    device time from torch.profiler, back to back (device_ms) and with the
+    L2 flushed (device_cold_ms); and at B=8 in float32 the gradients
     through fused_gwnet_layer (supports included) against autograd of the
     plain version."""
     rows, failures = [], []
+    flush = flush_buffer()
     st = weights.init_variables(cfg, 7, 67, seed=1)["params"]["st_gnn"]
     names = [f"{k}0_{p}" for k in ("filter_conv", "gate_conv", "skip_conv", "gconv")
              for p in ("kernel", "bias")]
@@ -264,13 +250,17 @@ def check_gwnet_layer(torch, glm, gsm, weights, cfg, gen):
             nbytes = glm.min_bytes(x, sup, *w, cs=256)
             nops = glm.flops(b, 67, 7, 32, 32, 256, sup.shape[0], order)
             bound_ms, bound_by = bound(nbytes, nops, dn)
+            call = lambda: glm.gwnet_layer_forward(*args, order=order)
             row = {
                 "dtype": dn, "B": b, "max_abs_err": err, "ok": ok,
                 "check": "; ".join(c[2] for c in checks if c[2]),
-                "ms": cuda_ms(lambda: glm.gwnet_layer_forward(*args, order=order), 50),
-                "plain_ms": cuda_ms(lambda: glm.gwnet_layer_reference(*args, order=order), 10),
+                "ms": events_ms(call, 50), "cold_ms": events_ms_cold(call, 20, flush),
+                "device_ms": device_ms(call, 50, "gwnet_layer_kernel"),
+                "device_cold_ms": device_ms(call, 20, "gwnet_layer_kernel", flush),
+                "plain_ms": events_ms(lambda: glm.gwnet_layer_reference(*args, order=order), 10),
                 "library_ms": None, "bytes": nbytes, "flop": nops, "bound_ms": bound_ms,
                 "bound_by": bound_by,
+                "smem_bytes": glm.smem_bytes(67, 32, 32, 256, sup.shape[0], order, dtype),
             }
             log("gwnet_layer", json.dumps(row))
             rows.append(row)
@@ -337,7 +327,7 @@ def check_dcrnn_stack(torch, dsm, weights, gen):
             torch.cuda.synchronize()
             err, ok, note = compare(got, want, truth)
             with torch.inference_mode():
-                t_m = cuda_ms(lambda: module(x, sup), 3)
+                t_m = events_ms(lambda: module(x, sup), 3)
             nbytes = dsm.min_bytes(x, sup, sp, 7)
             dims = (b, 67, 7, 7, cfg.st_gnn_in_dim, cfg.feature_vector_size, d.rnn_units,
                     d.num_rnn_layers, sup.shape[0], d.max_diffusion_step)
@@ -345,8 +335,8 @@ def check_dcrnn_stack(torch, dsm, weights, gen):
             bound_ms, bound_by = bound(nbytes, nops, dn)
             row = {
                 "dtype": dn, "B": b, "max_abs_err": err, "ok": ok, "check": note,
-                "ms": cuda_ms(lambda: dsm.dcrnn_stack_forward(x, sup, sp, **kw), 5),
-                "plain_ms": cuda_ms(lambda: dsm.stack_forward_reference(x, sup, sp, **kw), 3),
+                "ms": events_ms(lambda: dsm.dcrnn_stack_forward(x, sup, sp, **kw), 5),
+                "plain_ms": events_ms(lambda: dsm.stack_forward_reference(x, sup, sp, **kw), 3),
                 "module_ms": t_m, "library_ms": None, "bytes": nbytes, "flop": nops,
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 # share of the multiply-adds in the projections (term ×
@@ -555,8 +545,8 @@ def check_max_pool(torch, F, mp, gen):
                 t_ops = 1e3 * nops / PEAK_OPS["float32"]
                 row = {
                     "kernel": name, "dtype": dn, "M": M_B8, "H": h, "C": c,
-                    "max_abs_err": err, "ok": err == 0.0, "ms": cuda_ms(kern, 20),
-                    "plain_ms": cuda_ms(plain, 5), "library_ms": cuda_ms(lib, 20),
+                    "max_abs_err": err, "ok": err == 0.0, "ms": events_ms(kern, 20),
+                    "plain_ms": events_ms(plain, 5), "library_ms": events_ms(lib, 20),
                     "bytes": nbytes, "ops": nops, "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 }
@@ -708,7 +698,7 @@ def main() -> int:
     from multimodal_outage_tpu_torch.ops import max_pool as mp
 
     t_start = time.perf_counter()
-    smi = smi_line()
+    smi = card()
     log(f"phase 1: {torch.cuda.get_device_name(0)}; torch {torch.__version__} cuda {torch.version.cuda}")
     log(smi)
 
@@ -802,9 +792,13 @@ def main() -> int:
         })
     main_gl = [r for r in gl_rows if r["dtype"] == "bfloat16" and r["B"] == 8][0]
     main_ds = [r for r in ds_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]
-    for name, src, replaces, n, row in (
-        ("gwnet_layer", "gwnet_layer.cu", "gwnet_pallas.py:187", layer_launches, main_gl),
-        ("dcrnn_stack", "dcrnn_stack.cu", "dcrnn_stack_pallas.py:169", dcrnn_launches, main_ds),
+    # gwnet_layer also gives its device time: one call's host enqueue is
+    # longer than the kernel, so its back-to-back `ms` times the host
+    for name, src, replaces, n, row, extra in (
+        ("gwnet_layer", "gwnet_layer.cu", "gwnet_pallas.py:187", layer_launches, main_gl,
+         {"device_ms": main_gl["device_ms"]}),
+        ("dcrnn_stack", "dcrnn_stack.cu", "dcrnn_stack_pallas.py:169", dcrnn_launches, main_ds,
+         {}),
     ):
         kernels.append({
             "name": name, "route": "cuda",
@@ -812,12 +806,14 @@ def main() -> int:
             "replaces": f"multimodal_outage_tpu/ops/{replaces}",
             "launches": n, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "bound_by": row["bound_by"], "library_ms": None, **extra,
         })
     log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are bf16: one B=1 "
         "serving forward's calls (double_conv: the sum of its 9 shapes), one B=8 "
         "train step's pools (max_pool: the sum of its 4 shapes), one B=8 call of the "
-        "per-layer kernel (gwnet_layer: 8 per step) and one B=1 DCRNN forward")
+        "per-layer kernel (gwnet_layer: 8 per step; ms by back-to-back events, host "
+        "enqueue included; device_ms the kernel's own time from torch.profiler) "
+        "and one B=1 DCRNN forward")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

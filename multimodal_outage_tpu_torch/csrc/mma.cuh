@@ -1,6 +1,7 @@
 // Warp-level tensor-core helpers for the bf16 bodies (double_conv.cu,
-// dcrnn_stack.cu, gwnet_stack.cu): packing, shared-memory addresses, ldmatrix fragment
-// loads and the m16n8k16 bf16 mma.sync with float32 accumulation.
+// dcrnn_stack.cu, gwnet_stack.cu, gwnet_layer.cu): packing, shared-memory
+// addresses, ldmatrix fragment loads and the m16n8k16 bf16 mma.sync with
+// float32 accumulation.
 #pragma once
 
 #include <cstdint>

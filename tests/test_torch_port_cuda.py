@@ -356,9 +356,12 @@ def _layer_args(b, n, t, c, cd, cs, s_count, order, dtype, device, seed=0):
 
 
 # (B, N, T, C, Cd, Cs, S, order): the full-width layer at the batch sizes
-# of serving and training, and small shapes with 1 and 3 supports
+# of serving and training, small shapes with 1 and 3 supports, and one
+# whose x and weight rows are not 16-byte multiples (C = 12, Cs = 36) and
+# whose diffusion terms pad (Cd = 20 → 32 columns)
 LAYER_SHAPES = [(1, 67, 7, 32, 32, 256, 2, 2), (8, 67, 7, 32, 32, 256, 2, 2),
-                (16, 67, 7, 32, 32, 256, 2, 2), (2, 7, 3, 8, 8, 16, 1, 2), (2, 9, 3, 8, 12, 16, 3, 3)]
+                (16, 67, 7, 32, 32, 256, 2, 2), (2, 7, 3, 8, 8, 16, 1, 2), (2, 9, 3, 8, 12, 16, 3, 3),
+                (3, 19, 5, 12, 20, 36, 2, 2)]
 
 
 @pytest.mark.cuda
@@ -395,6 +398,84 @@ def test_gwnet_layer_gradients_through_the_kernel(cuda):
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
     assert grads[0][1].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LAYER_SHAPES)
+def test_gwnet_layer_smem_bytes_match_layout(cuda, shape):
+    """The library's shared memory per block: the bf16 body's layout is the
+    Python mirror's (bf16_layout) field by field, every offset, stride and
+    padded width, and its size is the mirror's total; the float32 body's
+    size is its own sum."""
+    _, n, _, c, cd, cs, s_count, order = shape
+    dims = (n, c, cd, cs, s_count, order)
+    mirror = glm.bf16_layout(*dims)
+    assert sorted(mirror) == sorted(glm.LAYOUT_FIELDS)
+    assert glm.smem_layout(*dims) == mirror
+    assert glm.smem_bytes(*dims, torch.bfloat16) == mirror["total"]
+    nt = s_count * order + 1
+    assert glm.smem_bytes(*dims, torch.float32) == 4 * (n * nt * cd + n * 2 * cd + s_count * n * n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [LAYER_SHAPES[1], LAYER_SHAPES[-1]])
+def test_gwnet_layer_bf16_large_gate_biases(cuda, shape):
+    """bf = bg = 3 + noise: a pad node row of g would be tanh(bf)·σ(bg) ≈
+    0.95, far from zero; none may reach s or h."""
+    *dims, order = shape
+    args = _layer_args(*dims, order, torch.bfloat16, cuda, seed=3)
+    args[3] = args[3] + 3.0
+    args[5] = args[5] + 3.0
+    h, s = glm.gwnet_layer_forward(*args, order=order)
+    torch.cuda.synchronize()
+    hw, sw = glm.gwnet_layer_reference(*args, order=order)
+    ht, st = glm.gwnet_layer_reference(*(a.float() for a in args), order=order)
+    _assert_kernel_matches(h, hw, ht)
+    _assert_kernel_matches(s, sw, st)
+
+
+@pytest.mark.cuda
+def test_gwnet_layer_bf16_gradients_through_the_kernel(cuda):
+    """fused_gwnet_layer in bf16 at full width: the forward is the kernel's
+    (held to the plain version's accuracy), the gradients (supports
+    included) are autograd of the plain bf16 version on the same inputs."""
+    args = _layer_args(8, 67, 7, 32, 32, 256, 2, 2, torch.bfloat16, cuda, seed=4)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    dh = torch.randn(8, 67, 7, 32, generator=gen, device=cuda).to(torch.bfloat16)
+    ds = torch.randn(8, 67, 7, 256, generator=gen, device=cuda).to(torch.bfloat16)
+    outs, grads = [], []
+    for fn in (glm.fused_gwnet_layer, glm.gwnet_layer_reference):
+        leaves = [a.clone().requires_grad_() for a in args]
+        before = glm.gwnet_layer_forward.launches
+        out = fn(*leaves, order=2)
+        torch.autograd.backward(out, (dh, ds))
+        assert glm.gwnet_layer_forward.launches == before + (fn is glm.fused_gwnet_layer)
+        outs.append([o.detach() for o in out])
+        grads.append([v.grad for v in leaves])
+    truth = glm.gwnet_layer_reference(*(a.float() for a in args), order=2)
+    for got, want, tr in zip(*outs, truth):
+        _assert_kernel_matches(got, want, tr)
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want)
+    assert grads[0][1].abs().max() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gwnet_layer_launches_one_kernel_per_call(cuda, dtype):
+    """One call is one CUDA kernel on the device (no packing or copy
+    launches), the bf16 body in bf16 and the float32 body in float32."""
+    args = _layer_args(8, 67, 7, 32, 32, 256, 2, 2, dtype, cuda)
+    glm.gwnet_layer_forward(*args, order=2)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        glm.gwnet_layer_forward(*args, order=2)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 1, names
+    assert "gwnet_layer_kernel" in names[0]
+    assert ("gwnet_layer_kernel_bf16" in names[0]) == (dtype == torch.bfloat16), names
 
 
 def _dcrnn_case(full: bool, b: int, dtype, device, layers=2, k=2, units=8, dout=12, n=6):

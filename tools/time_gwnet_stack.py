@@ -30,10 +30,10 @@ timed on one card in one call. Prints the card, then one JSON line per
 from __future__ import annotations
 
 import argparse
-import json
 import os
-import subprocess
 import sys
+
+from _timing import Rows, device_ms, events_ms, events_ms_cold, flush_buffer
 
 
 def main() -> int:
@@ -58,58 +58,13 @@ def main() -> int:
     from multimodal_outage_tpu_torch.ops import gwnet_stack as gsm
     from multimodal_outage_tpu_torch.serving import ServingModel
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    rows = []
+    rows, flush = Rows(args.port_dir, args.out), flush_buffer()
 
-    def emit(row):
-        row = {"port_dir": os.path.abspath(args.port_dir), "card": card, **row}
-        rows.append(row)
-        print(json.dumps(row), flush=True)
-
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-
-    def events_ms(fn, cold: bool) -> float:
-        fn()
-        torch.cuda.synchronize()
-        total = 0.0
-        if not cold:
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(args.reps):
-                fn()
-            end.record()
-            end.synchronize()
-            return start.elapsed_time(end) / args.reps
-        for _ in range(args.reps):
-            flush.zero_()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            total += start.elapsed_time(end)
-        return total / args.reps
-
-    def kernel_ms(prof, count: int) -> float:
-        return sum(ev.time_range.elapsed_us() for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and "gwnet_stack_kernel" in ev.name) / 1e3 / count
-
-    def profiled_ms(fn, cold: bool) -> float:
-        fn()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(args.reps):
-                if cold:
-                    flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        return kernel_ms(prof, args.reps)
+    def times(fn) -> dict:
+        return {"warm_ms": events_ms(fn, args.reps),
+                "cold_ms": events_ms_cold(fn, args.reps, flush),
+                "prof_ms": device_ms(fn, args.reps, "gwnet_stack_kernel"),
+                "prof_cold_ms": device_ms(fn, args.reps, "gwnet_stack_kernel", flush)}
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for n_layers, dn in [(n, dn) for n in args.layers for dn in args.dtype]:
@@ -126,9 +81,7 @@ def main() -> int:
         for b in args.batch:
             x = torch.randn(b, 67, 7, cfg.st_gnn_in_dim, generator=gen, device="cuda").to(dtype)
             fn = lambda: gsm.gwnet_stack_forward(x, sup, sp, order=cfg.gwnet.order)
-            emit({"dtype": dn, "B": b, "layers": n_layers, "warm_ms": events_ms(fn, False),
-                  "cold_ms": events_ms(fn, True), "prof_ms": profiled_ms(fn, False),
-                  "prof_cold_ms": profiled_ms(fn, True)})
+            rows.emit({"dtype": dn, "B": b, "layers": n_layers, **times(fn)})
     cfg = ModelConfig()
     serve = ServingModel(cfg, weights.init_variables(cfg, 7, 67, seed=0), model_supports(cfg, 67))
     for b in [] if args.no_forward else args.batch:
@@ -136,13 +89,9 @@ def main() -> int:
         feats = torch.tensor([0, 0, 0, 2018, 10, 1], dtype=torch.float32,
                              device="cuda").repeat(b, 7, 1)
         fwd = lambda: serve(x, feats)
-        emit({"dtype": "bfloat16", "B": b, "forward_wall_ms": events_ms(fwd, False),
-              "forward_ms": profiled_ms(fwd, False)})
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "a") as f:
-            f.writelines(json.dumps(r) + "\n" for r in rows)
-    return 0
+        rows.emit({"dtype": "bfloat16", "B": b, "forward_wall_ms": events_ms(fwd, args.reps),
+                   "forward_ms": device_ms(fwd, args.reps, "gwnet_stack_kernel")})
+    return rows.write()
 
 
 if __name__ == "__main__":

@@ -5,8 +5,10 @@ against its plain PyTorch version at every shape the serving and training
 paths give it, serves a held-out hurricane end to end at full width
 through the CLI's code path with Graph WaveNet and with DCRNN, trains one
 epoch at full width through the CLI's code path and one through `fit`
-with the per-layer Graph WaveNet kernel, and checks that each path went
-through its kernels.
+with the per-layer Graph WaveNet kernel, reads the trained checkpoint
+back through `evaluate` and `serve --checkpoint_path` (and a DCRNN
+checkpoint through `serve`), and checks that each path went through its
+kernels.
 
     python3 chip_smoke.py
 
@@ -23,6 +25,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import sys
 import tempfile
 import time
@@ -69,6 +72,13 @@ STEP_RTOL = 1e-5
 # phase 3d: batch sizes of the per-layer Graph WaveNet kernel: a B=1
 # request, a B=8 train step, a B=16 request
 LAYER_BATCHES = (1, 8, 16)
+# phase 7: evaluate of phase 5's checkpoint runs the code of fit's final
+# test sweep over the same batches in the same process, so its metrics
+# should equal phase 5's; serve (BN folded, bf16 engine) is held to the
+# module's metrics as the JAX package's dress rehearsal holds them (MAPE
+# left out: near-zero targets amplify any difference)
+METRICS = ("loss", "mae", "mape", "rmse")
+EVAL_RTOL, SERVE_RTOL = 1e-6, 1e-2
 
 
 def log(*a):
@@ -678,6 +688,93 @@ def step_vs_plain(torch, store_dir):
     return failures
 
 
+def checkpoint_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, store_dir, train_store,
+                          trained, dcrnn_b1):
+    """Phase 7: the readers of a checkpoint at full width, each through the
+    CLI's code path with the launch counters set to 0 just before and read
+    just after its run. (a) `evaluate --pool pallas` of phase 5's
+    checkpoint: 4 pool forwards per batch and phase 5's test metrics to
+    EVAL_RTOL; (b) `serve --checkpoint_path` of the same checkpoint: 9
+    DoubleConv and 1 stack launches per forward, loss, MAE and RMSE within
+    SERVE_RTOL of (a) (BN folded in bf16 against the module); (c) `serve
+    --checkpoint_path --st_gnn dcrnn` of the tree `serve --seed 0` builds,
+    saved through the port's CheckpointManager: phase 4c's B=1 metrics
+    exactly, 1 dcrnn_stack launch per forward."""
+    import numpy as np
+
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.checkpoint import CheckpointManager
+    from multimodal_outage_tpu_torch.core.config import ModelConfig
+
+    ckpt = os.path.join(workdir, "logs", "smoke", "checkpoints")
+    preds_dir, metrics_json = os.path.join(workdir, "preds"), os.path.join(workdir, "test.json")
+    mp.max_pool_forward.launches = mp.max_pool_backward.launches = 0
+    t0 = time.perf_counter()
+    ev = cli.run(["evaluate", "--checkpoint_path", ckpt, "--case", "michael", "--pool", "pallas",
+                  "--batch_size", "8", "--dataset_range", str(TRAIN_MARGIN), "--data_dir",
+                  train_store, "--save_preds", preds_dir, "--metrics_json", metrics_json])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    pool = (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+    f = ev["forwards"]
+    gap = max(abs(ev["metrics"][k] - trained[f"test_{k}"]) / abs(trained[f"test_{k}"])
+              for k in METRICS)
+    preds = np.load(os.path.join(preds_dir, "preds.npy"), mmap_mode="r")
+    shape = (ev["windows"], 67, 7, 128, 128, 1)
+    log(f"phase 7a: evaluate {json.dumps(ev)}; {wall:.3f} s wall (store to the card, model "
+        f"build, {f} forwards); pool launches (fwd, bwd) {pool}; largest relative difference "
+        f"from phase 5's test metrics {gap!r}; preds {preds.shape} {preds.dtype}")
+    if pool != (4 * f, 0):
+        raise RuntimeError(f"phase 7a: {f} forwards launched pools {pool}, expected {(4 * f, 0)}")
+    if gap > EVAL_RTOL:
+        raise RuntimeError(f"phase 7a: test metrics {ev['metrics']} differ from phase 5's {trained}")
+    if preds.shape != shape or preds.dtype != np.float32 or ev["windows"] != 18:
+        raise RuntimeError(f"phase 7a: preds {preds.shape} {preds.dtype}, expected {shape} float32")
+    with open(metrics_json) as fh:
+        if json.load(fh) != ev["metrics"]:
+            raise RuntimeError("phase 7a: --metrics_json differs from the printed metrics")
+    del preds
+    shutil.rmtree(preds_dir)
+
+    dcm.fused_double_conv.launches = gsm.gwnet_stack_forward.launches = 0
+    sv = cli.run(["serve", "--checkpoint_path", ckpt, "--case", "michael", "--batch_size", "8",
+                  "--dataset_range", str(TRAIN_MARGIN), "--data_dir", train_store,
+                  "--latency_stats"])
+    torch.cuda.synchronize()
+    grew, f = (dcm.fused_double_conv.launches, gsm.gwnet_stack_forward.launches), sv["forwards"]
+    gaps = {k: abs(sv["metrics"][k] - ev["metrics"][k]) / abs(ev["metrics"][k])
+            for k in ("loss", "mae", "rmse")}
+    log(f"phase 7b: serve --checkpoint_path B=8 {json.dumps(sv)} launches (double_conv, "
+        f"gwnet_stack) {grew}; relative gaps to evaluate {json.dumps(gaps)}")
+    if grew != (9 * f, f):
+        raise RuntimeError(f"phase 7b: {f} forwards launched {grew}, expected {(9 * f, f)}")
+    if max(gaps.values()) > SERVE_RTOL:
+        raise RuntimeError(f"phase 7b: serve {sv['metrics']} vs evaluate {ev['metrics']}")
+
+    d_ckpt = os.path.join(workdir, "dcrnn_checkpoints")
+    tree = weights.init_variables(ModelConfig(st_gnn="dcrnn"), 7, 67, seed=0)
+    CheckpointManager(d_ckpt).save(0, tree, metrics={"val_loss": 0.0})
+    counters = (dcm.fused_double_conv, dsm.dcrnn_stack_forward, gsm.gwnet_stack_forward)
+    for c in counters:
+        c.launches = 0
+    sd = cli.run(["serve", "--checkpoint_path", d_ckpt, "--st_gnn", "dcrnn", "--data_dir",
+                  store_dir, "--case", "michael", "--dataset_range", "24", "--batch_size", "1",
+                  "--max_batches", "3", "--latency_stats"])
+    torch.cuda.synchronize()
+    grew, f = tuple(c.launches for c in counters), sd["forwards"]
+    log(f"phase 7c: serve --checkpoint_path --st_gnn dcrnn B=1 {json.dumps(sd)} launches "
+        f"(double_conv, dcrnn_stack, gwnet_stack) {grew}")
+    if grew != (9 * f, f, 0):
+        raise RuntimeError(f"phase 7c: {f} forwards launched {grew}, expected {(9 * f, f, 0)}")
+    if sd["metrics"] != dcrnn_b1["metrics"]:
+        raise RuntimeError(f"phase 7c: {sd['metrics']} differ from --seed 0's {dcrnn_b1['metrics']}")
+    for name, out in (("7b serve gwnet B=8", sv), ("7c serve dcrnn B=1", sd)):
+        log(f"phase {name} from a checkpoint: p50 {out['latency']['p50_ms']:.3f} ms "
+            f"p90 {out['latency']['p90_ms']:.3f} ms")
+    return {"evaluate_s": wall, "evaluate_forwards": ev["forwards"], "round_trip_gap": gap,
+            "serve_gaps": gaps}
+
+
 def main() -> int:
     import torch
 
@@ -742,12 +839,15 @@ def main() -> int:
         for b, out in dcrnn_runs.items():
             log(f"phase 4c: serve --st_gnn dcrnn B={b} metrics {json.dumps(out['metrics'])} "
                 f"p50 {out['latency']['p50_ms']:.3f} ms p90 {out['latency']['p90_ms']:.3f} ms")
-        train_store, _, pool_launches, _ = train_end_to_end(torch, cli, mp, workdir)
+        train_store, trained, pool_launches, _ = train_end_to_end(torch, cli, mp, workdir)
         f5 = step_vs_plain(torch, train_store)
         if f5:
             raise RuntimeError("phase 5b: kernel step disagrees with the plain step:\n"
                                + "\n".join(f5))
         _, layer_launches = train_gwnet_layer_end_to_end(torch, glm, mp, train_store, workdir)
+        p7 = checkpoint_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, store_dir,
+                                   train_store, trained, dcrnn_runs[1])
+        log(f"phase 7: {json.dumps(p7)}")
 
     main_dc = [r for r in dc_rows if r["dtype"] == "bfloat16"]
     main_st = [r for r in st_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]

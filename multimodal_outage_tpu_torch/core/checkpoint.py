@@ -7,7 +7,8 @@ Two stores under the checkpoint directory, each a directory of
   best/    the top-k steps by val_loss (min), for the end-of-fit sweeps
   latest/  the most recent step (resuming from it is a ROADMAP item)
 A tree is nested dicts of tensors and Python numbers; tensors are saved
-from the CPU.
+from the CPU. The stores are created by the first save: reading a
+directory never writes to it.
 """
 
 from __future__ import annotations
@@ -35,8 +36,6 @@ class CheckpointManager:
         self._dir = os.path.abspath(directory)
         self._best = os.path.join(self._dir, "best")
         self._latest = os.path.join(self._dir, "latest")
-        os.makedirs(self._best, exist_ok=True)
-        os.makedirs(self._latest, exist_ok=True)
         self._keep = keep_top_k
         self._index = os.path.join(self._best, "metrics.json")
 
@@ -48,12 +47,15 @@ class CheckpointManager:
 
     @staticmethod
     def _steps(d: str):
+        if not os.path.isdir(d):
+            return []
         return sorted(int(f[:-3]) for f in os.listdir(d) if f.endswith(".pt"))
 
     def save(self, step: int, tree: Any, metrics: dict) -> None:
         tree = _to_cpu(tree)
         # write-then-rename: a reader never sees a partial file
         for d in (self._best, self._latest):
+            os.makedirs(d, exist_ok=True)
             tmp = os.path.join(d, f".{step}.pt.tmp")
             torch.save(tree, tmp)
             os.replace(tmp, os.path.join(d, f"{step}.pt"))
@@ -94,3 +96,18 @@ class CheckpointManager:
             if os.path.exists(path):
                 return torch.load(path, map_location="cpu", weights_only=True)
         raise FileNotFoundError(f"no checkpoint of step {step} in {self._dir}")
+
+
+def require_checkpoints(directory: str) -> None:
+    """Raise FileNotFoundError unless `directory` exists and holds
+    something: the readers' check before any other work (JAX
+    train/loop.py:795-796, 918-921)."""
+    if not os.path.isdir(directory) or not os.listdir(directory):
+        raise FileNotFoundError(f"no checkpoints found in {directory!r}")
+
+
+def restore_variables(directory: str, step: Optional[int] = None) -> Dict[str, Any]:
+    """The {"params", "batch_stats"} of the best checkpoint (or of `step`)
+    under `directory`, as CPU tensors."""
+    tree = CheckpointManager(directory).restore(step)
+    return {"params": tree["params"], "batch_stats": tree["batch_stats"]}

@@ -134,3 +134,12 @@ def model_supports(
     package's train/loop.py:100-132 build_supports): static_supports at
     model_adjtype(model_cfg), with the same county-order check."""
     return static_supports(n_counties, model_adjtype(model_cfg), county_names, path, seed)
+
+
+def config_supports(cfg, store) -> np.ndarray:
+    """The supports that fit, predict and serve build for a Config over a
+    store: model_supports at cfg.adjacency_csv and cfg.train.seed (the
+    seed draws the synthetic graph of a store with fewer than 67
+    counties, as in the JAX package's train/loop.py:130)."""
+    return model_supports(cfg.model, store.n_counties, store.county_names,
+                          path=cfg.adjacency_csv, seed=cfg.train.seed)

@@ -76,6 +76,13 @@ class WindowDataset:
         win = batch_idx[:, None] + np.arange(2 * self.horizon)[None, :]
         return self.indices[win]
 
+    def future_window_dates(self, batch_idx: np.ndarray) -> np.ndarray:
+        """[B, horizon, 3] (y, m, d) dates of each sample's future window,
+        the predicted frames' dates (JAX data/dataset.py:103-109)."""
+        pos = self.window_positions(batch_idx)[:, self.horizon :]
+        dates = self.store.dates[pos.reshape(-1)]
+        return dates.reshape(len(np.atleast_1d(batch_idx)), self.horizon, 3)
+
     def window_date_feats(self, batch_idx: np.ndarray) -> np.ndarray:
         """[B, horizon, 6] Date2Vec inputs for each sample's past window."""
         pos = self.window_positions(batch_idx)[:, : self.horizon]

@@ -35,6 +35,7 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -293,12 +294,15 @@ def serve_eval(
     batch_size: int,
     max_batches: Optional[int] = None,
     latency_stats: bool = False,
+    collect_preds: Optional[List[np.ndarray]] = None,
 ) -> Tuple[Dict[str, float], Dict[str, float], int]:
     """Sweep the held-out hurricane through the engine, as the JAX
     package's train/loop.py serve_eval does. Returns (metrics, latency,
     forwards): metrics are the mean of per-batch values; latency (with
     latency_stats) has p50/p90 per-request ms over up to six full-size
-    batches; forwards counts every engine call made here."""
+    batches; forwards counts every engine call made here. Each swept
+    batch's prediction is appended to collect_preds, when given, as a
+    host array."""
     from multimodal_outage_tpu_torch.data.dataset import WindowDataset, batch_indices
     from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline
 
@@ -327,6 +331,8 @@ def serve_eval(
         yhat = serve(batch["x"], batch["date_feats"])
         forwards += 1
         agg.update(regression_metrics(yhat, batch["y"]))
+        if collect_preds is not None:
+            collect_preds.append(yhat.cpu().numpy())
         if len(timed) < 6 and len(idx) == batch_size:
             timed.append(batch)
     latency: Dict[str, float] = {}

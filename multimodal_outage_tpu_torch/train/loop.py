@@ -1,7 +1,9 @@
 """Training loop on one device (JAX train/loop.py:135-222, 326-340,
 407-770): epochs with a per-epoch cosine LR, a val sweep after each
 epoch, early stopping on val_loss, best-k checkpoints, and at the end the
-best checkpoint swept over val and the held-out hurricane.
+best checkpoint swept over val and the held-out hurricane; and predict
+(JAX train/loop.py:901-1010), the same sweep of a checkpoint over the
+held-out hurricane.
 
 Not here yet (each raises when asked for): grad accumulation, remat,
 resume, TensorBoard, profiling, NaN debugging, mesh/SPMD with
@@ -18,13 +20,17 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from multimodal_outage_tpu_torch.core.checkpoint import CheckpointManager
+from multimodal_outage_tpu_torch.core.checkpoint import (
+    CheckpointManager,
+    require_checkpoints,
+    restore_variables,
+)
 from multimodal_outage_tpu_torch.core.config import Config, asdict
 from multimodal_outage_tpu_torch.core.device import resolve_device
-from multimodal_outage_tpu_torch.core.metrics import MeanAggregator
+from multimodal_outage_tpu_torch.core.metrics import MeanAggregator, regression_metrics
 from multimodal_outage_tpu_torch.core.registry import leave_one_out
 from multimodal_outage_tpu_torch.core.run_logging import RunLogger, device_memory_stats
-from multimodal_outage_tpu_torch.data.adjacency import model_supports
+from multimodal_outage_tpu_torch.data.adjacency import config_supports
 from multimodal_outage_tpu_torch.data.dataset import (
     WindowDataset,
     batch_indices,
@@ -39,7 +45,7 @@ from multimodal_outage_tpu_torch.train.state import (
     create_train_state,
     param_count,
 )
-from multimodal_outage_tpu_torch.train.steps import make_eval_step, make_train_step
+from multimodal_outage_tpu_torch.train.steps import make_predict_step, make_train_step
 from multimodal_outage_tpu_torch.weights import init_variables, load_variables, module_variables
 
 
@@ -91,11 +97,20 @@ def _epoch_iter(ds, idx, cfg: Config, shuffle: bool, seed: int, device_pipe: Dev
         yield device_pipe.batch(ds, idx[b])
 
 
-def evaluate(eval_step, ds, idx, cfg: Config, supports, device_pipe) -> Dict[str, float]:
-    """Mean of per-batch metrics (reference lit.py:100-106)."""
+def evaluate(
+    predict_step, ds, idx, cfg: Config, supports, device_pipe,
+    collect: Optional[Tuple[List[np.ndarray], List[np.ndarray]]] = None,
+) -> Dict[str, float]:
+    """Mean of per-batch metrics (reference lit.py:100-106), each from the
+    batch's one eval forward. With collect=(preds, targets), each batch's
+    prediction and target are also appended there as host arrays."""
     agg = MeanAggregator()
     for batch in _epoch_iter(ds, idx, cfg, shuffle=False, seed=0, device_pipe=device_pipe):
-        agg.update(eval_step(batch, supports))
+        yhat = predict_step(batch, supports)
+        agg.update(regression_metrics(yhat, batch["y"]))
+        if collect is not None:
+            collect[0].append(yhat.cpu().numpy())
+            collect[1].append(batch["y"].cpu().numpy())
     return agg.compute()
 
 
@@ -134,10 +149,7 @@ def fit(
     if progress:
         print(f"Size of train_set: {len(train_idx)}, val_set: {len(val_idx)}, "
               f"and test_set: {len(test_ds)}")
-    supports = torch.from_numpy(model_supports(
-        cfg.model, store.n_counties, store.county_names,
-        path=cfg.adjacency_csv, seed=cfg.train.seed,
-    )).to(dev)
+    supports = torch.from_numpy(config_supports(cfg, store)).to(dev)
     horizon, size = cfg.data.horizon, cfg.data.image_size
     model = build_model(cfg.model, horizon, store.n_counties, size)
     load_variables(model, init_variables(cfg.model, horizon, store.n_counties,
@@ -146,7 +158,7 @@ def fit(
     state = create_train_state(model)
     if progress:
         print(f"Model parameters: {param_count(model):,}")
-    train_step, eval_step = make_train_step(model), make_eval_step(model)
+    train_step, predict_step = make_train_step(model), make_predict_step(model)
     pipe = DevicePipeline(store, cfg.data.mean, cfg.data.std, size,
                           getattr(torch, cfg.data.device_dtype), dev)
 
@@ -178,7 +190,7 @@ def fit(
             metric_count += 1
         train_metrics = {k: float(v) / metric_count for k, v in metric_sum.items()}
 
-        val_metrics = evaluate(eval_step, ds, val_idx, cfg, supports, pipe)
+        val_metrics = evaluate(predict_step, ds, val_idx, cfg, supports, pipe)
         eval_forwards += n_eval(len(val_idx))
         dt = time.time() - t0
         tiles = len(train_idx) * store.n_counties * horizon
@@ -204,8 +216,8 @@ def fit(
     # the best checkpoint, swept over val and the held-out hurricane
     # (reference PrintMetricsCallback / TestBestModelCallback, lit.py:74-140)
     load_variables(model, ckpt.restore())
-    final_val = evaluate(eval_step, ds, val_idx, cfg, supports, pipe)
-    final_test = evaluate(eval_step, test_ds, np.arange(len(test_ds)), cfg, supports, pipe)
+    final_val = evaluate(predict_step, ds, val_idx, cfg, supports, pipe)
+    final_test = evaluate(predict_step, test_ds, np.arange(len(test_ds)), cfg, supports, pipe)
     eval_forwards += n_eval(len(val_idx)) + n_eval(len(test_ds))
     results: Dict[str, float] = {
         "best_epoch": best_epoch,
@@ -228,3 +240,41 @@ def fit(
         )
     logger.close()
     return results
+
+
+def predict(
+    cfg: Config,
+    checkpoint_dir: str,
+    test_case: str,
+    step: Optional[int] = None,
+    device=None,
+) -> Tuple[np.ndarray, np.ndarray, Dict[str, float]]:
+    """Sweep the held-out hurricane with a checkpoint (JAX train/loop.py:
+    901-1010, its single-device branch; reference tlit.py:46-94): the best
+    step's (or `step`'s) params and batch_stats, the test windows in
+    order at cfg.train.batch_size, through the sweep fit's final test
+    sweep runs. Returns (preds, targets, metrics): float32 [S, N, T, H, W,
+    1] arrays and the mean of per-batch metrics."""
+    require_checkpoints(checkpoint_dir)  # before any other work
+    check_supported(cfg)
+    dev = resolve_device(device)
+    store = load_store(cfg.data.data_dir)
+    _, test_cases = leave_one_out(test_case)
+    test_ds = WindowDataset.from_case_study(
+        store, test_cases, cfg.data.dataset_range, cfg.data.horizon
+    )
+    if len(test_ds) == 0:
+        raise ValueError(f"no test windows for {test_case!r} at dataset_range "
+                         f"{cfg.data.dataset_range} and horizon {cfg.data.horizon}")
+    supports = torch.from_numpy(config_supports(cfg, store)).to(dev)
+    horizon, size = cfg.data.horizon, cfg.data.image_size
+    model = build_model(cfg.model, horizon, store.n_counties, size)
+    load_variables(model, restore_variables(checkpoint_dir, step))
+    model.to(dev)
+    pipe = DevicePipeline(store, cfg.data.mean, cfg.data.std, size,
+                          getattr(torch, cfg.data.device_dtype), dev)
+    preds: List[np.ndarray] = []
+    targets: List[np.ndarray] = []
+    metrics = evaluate(make_predict_step(model), test_ds, np.arange(len(test_ds)), cfg,
+                       supports, pipe, collect=(preds, targets))
+    return np.concatenate(preds), np.concatenate(targets), metrics

@@ -1,4 +1,4 @@
-"""Train and eval steps (JAX train/steps.py:74-132, 240-257).
+"""Train and eval steps (JAX train/steps.py:74-132, 240-271).
 
 A train step: forward in train mode (per-group BatchNorm statistics,
 running-stat EMA, dropout), MSE loss, backward, Adam at `lr`, and the
@@ -50,13 +50,12 @@ def make_train_step(model: torch.nn.Module) -> Callable[..., Dict[str, torch.Ten
     return train_step
 
 
-def make_eval_step(model: torch.nn.Module) -> Callable[..., Dict[str, torch.Tensor]]:
-    """Returns eval_step(batch, supports) → metrics of the eval-mode
-    forward (running BN statistics, no dropout)."""
+def make_predict_step(model: torch.nn.Module) -> Callable[..., torch.Tensor]:
+    """Returns predict_step(batch, supports) → the eval-mode forward's
+    float32 prediction (running BN statistics, no dropout)."""
 
     @torch.no_grad()
-    def eval_step(batch: Batch, supports: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
-        yhat = model(batch["x"], batch["date_feats"], supports, train=False)
-        return regression_metrics(yhat, batch["y"])
+    def predict_step(batch: Batch, supports: Optional[torch.Tensor]) -> torch.Tensor:
+        return model(batch["x"], batch["date_feats"], supports, train=False)
 
-    return eval_step
+    return predict_step

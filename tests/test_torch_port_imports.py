@@ -37,7 +37,8 @@ def test_port_imports_no_jax_in_fresh_interpreter():
     assert "multimodal_outage_tpu_torch.ops.double_conv" in mods
     for m in ("ops.max_pool", "models.layers", "models.unet", "models.fusion",
               "train.state", "train.steps", "train.loop", "core.checkpoint",
-              "core.run_logging", "ops.gwnet_layer", "ops.dcrnn_stack", "models.dcrnn"):
+              "core.run_logging", "ops.gwnet_layer", "ops.dcrnn_stack", "models.dcrnn",
+              "data.stats", "viz.maps"):
         assert f"multimodal_outage_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

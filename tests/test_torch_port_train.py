@@ -67,7 +67,7 @@ from multimodal_outage_tpu_torch.ops.gwnet_layer import fused_gwnet_layer
 from multimodal_outage_tpu_torch.serving import ServingModel
 from multimodal_outage_tpu_torch.train import loop
 from multimodal_outage_tpu_torch.train.state import create_train_state
-from multimodal_outage_tpu_torch.train.steps import make_eval_step, make_train_step
+from multimodal_outage_tpu_torch.train.steps import make_predict_step, make_train_step
 
 B, N, T, H = 2, 4, 3, 32
 LR = 1e-3
@@ -347,7 +347,7 @@ def test_cli_train_cpu_writes_and_restores_checkpoint(store32, tmp_path, monkeyp
     model = weights.load_variables(build_model(tc.model, T, N, H), tree)
     pipe = DevicePipeline(test_ds.store, tc.data.mean, tc.data.std, H, torch.bfloat16,
                           torch.device("cpu"))
-    test = loop.evaluate(make_eval_step(model), test_ds, np.arange(len(test_ds)), tc,
+    test = loop.evaluate(make_predict_step(model), test_ds, np.arange(len(test_ds)), tc,
                          torch.eye(N)[None], pipe)
     for k, v in test.items():
         assert v == out[f"test_{k}"], k

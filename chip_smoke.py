@@ -7,8 +7,9 @@ through the CLI's code path with Graph WaveNet and with DCRNN, trains one
 epoch at full width through the CLI's code path and one through `fit`
 with the per-layer Graph WaveNet kernel, reads the trained checkpoint
 back through `evaluate` and `serve --checkpoint_path` (and a DCRNN
-checkpoint through `serve`), and checks that each path went through its
-kernels.
+checkpoint through `serve`), trains DCRNN with scheduled sampling for an
+epoch and reads that checkpoint back the same two ways, and checks that
+each path went through its kernels.
 
     python3 chip_smoke.py
 
@@ -79,6 +80,10 @@ LAYER_BATCHES = (1, 8, 16)
 # left out: near-zero targets amplify any difference)
 METRICS = ("loss", "mae", "mape", "rmse")
 EVAL_RTOL, SERVE_RTOL = 1e-6, 1e-2
+# phase 8a: the DCRNN teacher-forcing step with the pool kernels against
+# the same step with the plain pool, float32 (the bar of the port's
+# float32 kernels on the card)
+DCRNN_STEP_RTOL = 1e-4
 
 
 def log(*a):
@@ -619,34 +624,40 @@ def train_end_to_end(torch, cli, mp, workdir):
     return store_dir, out, launches, peak
 
 
-def step_vs_plain(torch, store_dir):
-    """Phase 5b: one full-width B=8 train step with the pool kernels
-    against the same step with the plain pool, on the card."""
-    from multimodal_outage_tpu_torch import weights
-    from multimodal_outage_tpu_torch.core.config import (
-        DEFAULT_NTL_MEAN,
-        DEFAULT_NTL_STD,
-        ModelConfig,
-    )
+def train_batch(torch, store_dir):
+    """(store, first 8 train windows of phase 5's store on the card)."""
+    from multimodal_outage_tpu_torch.core.config import DEFAULT_NTL_MEAN, DEFAULT_NTL_STD
     from multimodal_outage_tpu_torch.core.registry import HURRICANES
     from multimodal_outage_tpu_torch.data.dataset import WindowDataset
     from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline
     from multimodal_outage_tpu_torch.data.store import load_store
-    from multimodal_outage_tpu_torch.models.fusion import build_model
-    from multimodal_outage_tpu_torch.train.state import create_train_state
-    from multimodal_outage_tpu_torch.train.steps import make_train_step
 
     store = load_store(store_dir)
     cases = {k: HURRICANES[k] for k in ("ian", "idalia")}
     ds = WindowDataset.from_case_study(store, cases, TRAIN_MARGIN, 7)
     pipe = DevicePipeline(store, DEFAULT_NTL_MEAN, DEFAULT_NTL_STD, 128,
                           torch.bfloat16, torch.device("cuda"))
-    batch = pipe.batch(ds, list(range(8)))
-    sup = torch.eye(67, device="cuda")[None]
-    var = weights.init_variables(ModelConfig(), 7, 67, seed=3)
+    return store, pipe.batch(ds, list(range(8)))
+
+
+def step_vs_plain(torch, store_dir, label="5b", rtol=STEP_RTOL, **model_kw):
+    """Phases 5b and 8a: one full-width B=8 train step with the pool
+    kernels against the same step with the plain pool, on the card;
+    model_kw are ModelConfig fields (phase 8a: DCRNN with teacher
+    forcing), the supports those of its st-GNN."""
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.config import ModelConfig
+    from multimodal_outage_tpu_torch.data.adjacency import model_supports
+    from multimodal_outage_tpu_torch.models.fusion import build_model
+    from multimodal_outage_tpu_torch.train.state import create_train_state
+    from multimodal_outage_tpu_torch.train.steps import make_train_step
+
+    store, batch = train_batch(torch, store_dir)
+    sup = torch.from_numpy(model_supports(ModelConfig(**model_kw), 67, store.county_names)).cuda()
+    var = weights.init_variables(ModelConfig(**model_kw), 7, 67, seed=3)
 
     def one_step(dtype: str, plain: bool):
-        cfg = ModelConfig(compute_dtype=dtype, pool="pallas")
+        cfg = ModelConfig(compute_dtype=dtype, pool="pallas", **model_kw)
         model = weights.load_variables(build_model(cfg, 7, 67, 128, pool_reference=plain), var)
         model.cuda()
         m = make_train_step(model)(create_train_state(model), batch, sup, 1e-3, 0)
@@ -667,8 +678,8 @@ def step_vs_plain(torch, store_dir):
     worst_g = max(float((gk[k] - gp[k]).abs().max()) / max(float(gp[k].abs().max()), 1e-3 * g_all)
                   for k in gp)
     worst_s = max(float(((sk[k] - sp[k]).abs() / sp[k].abs().clamp(min=1e-6)).max()) for k in sp)
-    ok = abs(lk - lp) <= STEP_RTOL * abs(lp) and worst_g <= STEP_RTOL and worst_s <= STEP_RTOL
-    log(f"phase 5b: float32 B=8 step, kernels vs plain pool: loss {lk!r} vs {lp!r}, "
+    ok = abs(lk - lp) <= rtol * abs(lp) and worst_g <= rtol and worst_s <= rtol
+    log(f"phase {label}: float32 B=8 step, kernels vs plain pool: loss {lk!r} vs {lp!r}, "
         f"worst grad leaf rel {worst_g:.3g}, worst BN stat rel {worst_s:.3g}, ok {ok}")
     if not ok:
         failures.append("float32 step")
@@ -681,7 +692,7 @@ def step_vs_plain(torch, store_dir):
     live = [k for k in gpb if gp[k].abs().max() > 0]
     bad = [k for k in gpb if k not in live and gb[k].abs().max() > 0]
     bad += [k for k in live if not compare(gb[k], gpb[k], gp[k])[1]]
-    log(f"phase 5b: bfloat16 B=8 step: loss {lb!r} (plain {lpb!r}, float32 {lp!r}) {note_l}; "
+    log(f"phase {label}: bfloat16 B=8 step: loss {lb!r} (plain {lpb!r}, float32 {lp!r}) {note_l}; "
         f"{len(gpb) - len(bad)} of {len(gpb)} grad leaves within the ratio bar")
     if not ok_l or bad:
         failures.append(f"bfloat16 step: loss ok {ok_l}, leaves off {bad[:5]}")
@@ -775,6 +786,149 @@ def checkpoint_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, store_dir, tra
             "serve_gaps": gaps}
 
 
+def step_busy_share(torch, store_dir, steps=3, **model_kw):
+    """Phase 8a: the device's busy share of a full-width B=8 bf16 train
+    step with the pool kernels: torch.profiler's device time of every
+    kernel over `steps` steps against their CUDA-event wall time, after
+    two warm-up steps. A share well under 1 is a step the host holds
+    back (the DCRNN module issues ~1000 small ops per forward)."""
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.config import ModelConfig
+    from multimodal_outage_tpu_torch.data.adjacency import model_supports
+    from multimodal_outage_tpu_torch.models.fusion import build_model
+    from multimodal_outage_tpu_torch.train.state import create_train_state
+    from multimodal_outage_tpu_torch.train.steps import make_train_step
+
+    store, batch = train_batch(torch, store_dir)
+    cfg = ModelConfig(pool="pallas", **model_kw)
+    sup = torch.from_numpy(model_supports(cfg, 67, store.county_names)).cuda()
+    model = weights.load_variables(build_model(cfg, 7, 67, 128),
+                                   weights.init_variables(cfg, 7, 67, seed=3)).cuda()
+    state, step = create_train_state(model), make_train_step(model)
+    for _ in range(2):
+        step(state, batch, sup, 1e-3, 0)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=acts) as prof:
+        start.record()
+        for _ in range(steps):
+            step(state, batch, sup, 1e-3, 0)
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end) / steps
+    busy = sum(ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / steps
+    if not busy:
+        raise RuntimeError("phase 8a: the profiler caught no device time")
+    return {"step_ms": wall, "device_busy_ms": busy, "device_busy_share": busy / wall}
+
+
+def train_dcrnn_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, train_store):
+    """Phase 8: DCRNN training at full width (the default DCRNNConfig:
+    2 DCGRU layers, 64 units, order 2, dual-random-walk supports of the
+    Florida graph), bf16, B=8, each run through the CLI's code path with
+    the launch counters set to 0 just before and read just after it.
+    (a) a teacher-forcing (p = 1) step with the pool kernels against the
+    same step with the plain pool, and the step's device-busy share;
+    (b) `train --st_gnn dcrnn --pool pallas --teacher_forcing 0.5
+    --tf_decay_steps 20`, one epoch on phase 5's store: 8 pool forwards
+    (4 on the eval-mode teacher pass) and 4 backwards per step, 4
+    forwards per eval batch; (c) `evaluate --st_gnn dcrnn --pool pallas`
+    of its checkpoint: its test metrics exactly; (d) `serve
+    --checkpoint_path --st_gnn dcrnn` B=8 of it: 9 DoubleConv and 1 DCRNN
+    kernel launches per forward, loss, MAE and RMSE within SERVE_RTOL of
+    (c)."""
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.checkpoint import CheckpointManager
+    from multimodal_outage_tpu_torch.core.config import DCRNNConfig, ModelConfig
+
+    f8a = step_vs_plain(torch, train_store, label="8a", rtol=DCRNN_STEP_RTOL, st_gnn="dcrnn",
+                        dcrnn=DCRNNConfig(teacher_forcing=1.0))
+    if f8a:
+        raise RuntimeError("phase 8a: kernel step disagrees with the plain step:\n"
+                           + "\n".join(f8a))
+    busy = step_busy_share(torch, train_store, st_gnn="dcrnn",
+                           dcrnn=DCRNNConfig(teacher_forcing=0.5, tf_decay_steps=20))
+    log(f"phase 8a: DCRNN teacher-forcing step, bf16 B=8: {json.dumps(busy)}")
+
+    cwd = os.getcwd()
+    os.chdir(workdir)  # the run directory is ./logs/<job_id>
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mp.max_pool_forward.launches = mp.max_pool_backward.launches = 0
+        t0 = time.perf_counter()
+        out = cli.run(["train", "--st_gnn", "dcrnn", "--teacher_forcing", "0.5",
+                       "--tf_decay_steps", "20", "--data_dir", train_store, "--case", "michael",
+                       "--dataset_range", str(TRAIN_MARGIN), "--epochs", "1", "--batch_size",
+                       "8", "--seed", "0", "--pool", "pallas", "--job_id", "smoke_dcrnn"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pool = (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        os.chdir(cwd)
+    steps, evals = out["train_steps"], out["eval_forwards"]
+    want = (8 * steps + 4 * evals, 4 * steps)
+    log(f"phase 8b: train --st_gnn dcrnn {json.dumps(out)}; {wall:.3f} s wall; pool launches "
+        f"(fwd, bwd) {pool}, expected {want}")
+    if steps < 2 or pool != want:
+        raise RuntimeError(f"phase 8b: pool launches {pool}, expected {want}")
+    finals = [v for k, v in out.items() if k.startswith(("val_", "test_"))]
+    if len(finals) != 8 or not all(math.isfinite(v) for v in finals):
+        raise RuntimeError(f"phase 8b: non-finite or missing final metrics {out}")
+    ckpt = os.path.join(workdir, "logs", "smoke_dcrnn", "checkpoints")
+    tree = CheckpointManager(ckpt).restore()
+    init = weights.flatten(
+        weights.init_variables(ModelConfig(st_gnn="dcrnn"), 7, 67, seed=0)["params"])
+    st = {k: v for k, v in weights.flatten(tree["params"]).items() if k.startswith("st_gnn/")}
+    still = [k for k, v in st.items() if torch.equal(v, init[k])]
+    if tree["step"] != steps or still or not st:
+        raise RuntimeError(f"phase 8b: checkpoint step {tree['step']} of {steps}; DCRNN "
+                           f"leaves that did not move: {still}")
+    log(f"phase 8b: all {len(st)} DCRNN parameter leaves moved from their init; train step "
+        f"p50 {out['train_step_ms_p50']:.3f} ms (CUDA events, B=8 bf16, after the first "
+        f"step); peak memory {peak / 2**30:.2f} GiB; device busy share "
+        f"{busy['device_busy_share']:.3f} (8a)")
+
+    mp.max_pool_forward.launches = mp.max_pool_backward.launches = 0
+    ev = cli.run(["evaluate", "--st_gnn", "dcrnn", "--checkpoint_path", ckpt, "--case",
+                  "michael", "--pool", "pallas", "--batch_size", "8", "--dataset_range",
+                  str(TRAIN_MARGIN), "--data_dir", train_store])
+    torch.cuda.synchronize()
+    pool, f = (mp.max_pool_forward.launches, mp.max_pool_backward.launches), ev["forwards"]
+    gap = max(abs(ev["metrics"][k] - out[f"test_{k}"]) / abs(out[f"test_{k}"]) for k in METRICS)
+    log(f"phase 8c: evaluate --st_gnn dcrnn {json.dumps(ev)}; pool launches (fwd, bwd) {pool}; "
+        f"largest relative difference from 8b's test metrics {gap!r}")
+    if pool != (4 * f, 0):
+        raise RuntimeError(f"phase 8c: {f} forwards launched pools {pool}, expected {(4 * f, 0)}")
+    if gap != 0.0:
+        raise RuntimeError(f"phase 8c: test metrics {ev['metrics']} differ from 8b's {out}")
+
+    counters = (dcm.fused_double_conv, dsm.dcrnn_stack_forward, gsm.gwnet_stack_forward)
+    for c in counters:
+        c.launches = 0
+    sv = cli.run(["serve", "--checkpoint_path", ckpt, "--st_gnn", "dcrnn", "--case", "michael",
+                  "--batch_size", "8", "--dataset_range", str(TRAIN_MARGIN), "--data_dir",
+                  train_store, "--latency_stats"])
+    torch.cuda.synchronize()
+    grew, f = tuple(c.launches for c in counters), sv["forwards"]
+    gaps = {k: abs(sv["metrics"][k] - ev["metrics"][k]) / abs(ev["metrics"][k])
+            for k in ("loss", "mae", "rmse")}
+    log(f"phase 8d: serve --checkpoint_path --st_gnn dcrnn B=8 {json.dumps(sv)} launches "
+        f"(double_conv, dcrnn_stack, gwnet_stack) {grew}; relative gaps to 8c "
+        f"{json.dumps(gaps)}")
+    if grew != (9 * f, f, 0):
+        raise RuntimeError(f"phase 8d: {f} forwards launched {grew}, expected {(9 * f, f, 0)}")
+    if max(gaps.values()) > SERVE_RTOL:
+        raise RuntimeError(f"phase 8d: serve {sv['metrics']} vs evaluate {ev['metrics']}")
+    return {"train_step_ms_p50": out["train_step_ms_p50"], "peak_gib": peak / 2**30,
+            **busy, "train_s": wall, "train_steps": steps, "eval_forwards": evals,
+            "pool_launches": want, "round_trip_gap": gap, "serve_gaps": gaps,
+            "serve_p50_ms": sv["latency"]["p50_ms"], "serve_launches": grew}
+
+
 def main() -> int:
     import torch
 
@@ -848,6 +1002,8 @@ def main() -> int:
         p7 = checkpoint_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, store_dir,
                                    train_store, trained, dcrnn_runs[1])
         log(f"phase 7: {json.dumps(p7)}")
+        p8 = train_dcrnn_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, train_store)
+        log(f"phase 8: {json.dumps(p8)}")
 
     main_dc = [r for r in dc_rows if r["dtype"] == "bfloat16"]
     main_st = [r for r in st_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]

@@ -44,6 +44,9 @@ def _parser() -> argparse.ArgumentParser:
         "--cases", type=str, default=",".join(HURRICANES),
         help="comma-separated hurricanes whose ±margin windows the store covers",
     )
+    p.add_argument("--pixel_noise", type=float, default=0.0,
+                   help="stddev of an extra per-pixel multiplicative noise (0: the "
+                   "spatially smooth default; >0 for scheduled-sampling studies)")
 
     p = sub.add_parser("stats", help="Normalization mean/std of a store")
     p.add_argument("--data_dir", type=str, default="data/synthetic")
@@ -75,19 +78,25 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--latency_stats", action="store_true",
                    help="also report p50/p90 per-request latency")
 
-    p = sub.add_parser("train", help="Train the fusion model (Graph WaveNet)")
+    p = sub.add_parser("train", help="Train the fusion model")
     p.add_argument("--case", type=str, default="michael", help="held-out hurricane")
     p.add_argument("--epochs", type=int, default=5)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--job_id", type=str, default="test",
                    help="run directory logs/<job_id> (metrics, checkpoints)")
+    p.add_argument("--teacher_forcing", type=float, default=0.0,
+                   help="DCRNN scheduled sampling: the probability that a decoder step "
+                   "is fed the encoded ground-truth frame instead of its own output "
+                   "(train steps only; 0 turns it off)")
+    p.add_argument("--tf_decay_steps", type=int, default=0,
+                   help="with --teacher_forcing: the inverse-sigmoid decay constant τ, "
+                   "p(step) = p0·τ/(τ + e^{step/τ}); 0 keeps p constant")
     _model_flags(p)
 
     p = sub.add_parser("evaluate", help="Sweep a held-out hurricane with a checkpoint")
     p.add_argument("--checkpoint_path", type=str, required=True,
                    help="checkpoint directory written by train (its best step)")
     p.add_argument("--case", type=str, default="idalia", help="held-out hurricane")
-    p.add_argument("--st_gnn", type=str, default="gwnet", choices=("gwnet", "dcrnn"))
     p.add_argument("--save_preds", type=str, default=None,
                    help="write preds.npy and targets.npy to this directory")
     p.add_argument("--metrics_json", type=str, default=None,
@@ -102,6 +111,8 @@ def _parser() -> argparse.ArgumentParser:
 
 def _model_flags(p: argparse.ArgumentParser) -> None:
     """The data, model and device flags that train and evaluate share."""
+    p.add_argument("--st_gnn", type=str, default="gwnet", choices=("gwnet", "dcrnn"),
+                   help="spatio-temporal GNN: Graph WaveNet or DCRNN")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--data_dir", type=str, default="data/synthetic")
     p.add_argument("--dataset_range", type=int, default=30)
@@ -125,6 +136,7 @@ def _config(args: argparse.Namespace, **train):
     from multimodal_outage_tpu_torch.core.config import (
         Config,
         DataConfig,
+        DCRNNConfig,
         ModelConfig,
         TrainConfig,
     )
@@ -137,7 +149,9 @@ def _config(args: argparse.Namespace, **train):
         model=ModelConfig(
             compute_dtype=args.compute_dtype, pool=args.pool,
             bn_single_pass=not args.bn_two_pass,
-            st_gnn=getattr(args, "st_gnn", "gwnet"),
+            st_gnn=args.st_gnn,
+            dcrnn=DCRNNConfig(teacher_forcing=getattr(args, "teacher_forcing", 0.0),
+                              tf_decay_steps=getattr(args, "tf_decay_steps", 0)),
         ),
         train=TrainConfig(batch_size=args.batch_size, **train),
     )
@@ -276,7 +290,7 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         frames, dates = generate_store(
             args.out_dir, n_counties=args.n_counties, image_size=args.image_size,
             margin=args.margin, seed=args.seed,
-            hurricanes={c: HURRICANES[c] for c in cases},
+            hurricanes={c: HURRICANES[c] for c in cases}, pixel_noise=args.pixel_noise,
         )
         return {"out_dir": args.out_dir, "frames": list(frames.shape),
                 "dates": int(dates.shape[0])}

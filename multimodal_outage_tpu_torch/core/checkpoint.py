@@ -52,26 +52,35 @@ class CheckpointManager:
         return sorted(int(f[:-3]) for f in os.listdir(d) if f.endswith(".pt"))
 
     def save(self, step: int, tree: Any, metrics: dict) -> None:
+        """Commit `step` so that a crash at any point leaves a directory
+        restore() reads: each file is written to a temporary name and
+        renamed (a reader never sees a partial file), the index names only
+        files that exist, and a file is deleted only after the index that
+        drops it is in place."""
         tree = _to_cpu(tree)
-        # write-then-rename: a reader never sees a partial file
         for d in (self._best, self._latest):
             os.makedirs(d, exist_ok=True)
-            tmp = os.path.join(d, f".{step}.pt.tmp")
-            torch.save(tree, tmp)
-            os.replace(tmp, os.path.join(d, f"{step}.pt"))
-        for old in self._steps(self._latest):
-            if old != step:
-                os.unlink(os.path.join(self._latest, f"{old}.pt"))
+            self._replace(os.path.join(d, f"{step}.pt"), lambda p: torch.save(tree, p))
         scores = self._metrics()
         scores[step] = float(metrics["val_loss"])
         keep = sorted(scores, key=lambda s: (scores[s], s))[: self._keep]
-        for s in list(scores):
-            if s not in keep:
-                del scores[s]
-                path = os.path.join(self._best, f"{s}.pt")
-                if os.path.exists(path):
-                    os.unlink(path)
-        with open(self._index, "w") as f:
+        scores = {s: scores[s] for s in keep}
+        self._replace(self._index, lambda p: self._dump(scores, p))
+        # files of a save that died before its index are pruned here too
+        for d, keep_d in ((self._best, keep), (self._latest, [step])):
+            for old in self._steps(d):
+                if old not in keep_d:
+                    os.unlink(os.path.join(d, f"{old}.pt"))
+
+    @staticmethod
+    def _replace(path: str, write) -> None:
+        tmp = os.path.join(os.path.dirname(path), f".{os.path.basename(path)}.tmp")
+        write(tmp)
+        os.replace(tmp, path)
+
+    @staticmethod
+    def _dump(scores: Dict[int, float], path: str) -> None:
+        with open(path, "w") as f:
             json.dump({str(k): v for k, v in scores.items()}, f)
 
     @property

@@ -58,8 +58,15 @@ def generate_frames(
     seed: int = 42,
     hurricanes: Dict[str, datetime.date] | None = None,
     sentinel_fraction: float = 1e-3,
+    pixel_noise: float = 0.0,
 ) -> np.ndarray:
-    """[D, N, H, W] synthetic radiance with outage dips after hurricanes."""
+    """[D, N, H, W] synthetic radiance with outage dips after hurricanes.
+
+    pixel_noise: standard deviation of an extra per-pixel multiplicative
+    noise, drawn after the per-(date, county) noise and before the
+    sentinel mask (0 keeps frames spatially smooth, which makes the
+    decoder's own predictions hard to tell from the encoded ground truth
+    in scheduled-sampling studies)."""
     hurricanes = hurricanes or HURRICANES
     rng = np.random.default_rng(seed)
     d = dates.shape[0]
@@ -81,7 +88,12 @@ def generate_frames(
     noise = 1.0 + 0.1 * rng.standard_normal((d, n_counties, 1, 1)).astype(
         np.float32
     )
-    frames = np.maximum(base[None] * impact[:, :, None, None] * noise, 0.0)
+    frames = base[None] * impact[:, :, None, None] * noise
+    if pixel_noise > 0.0:
+        frames = frames * (
+            1.0 + pixel_noise * rng.standard_normal(frames.shape).astype(np.float32)
+        )
+    frames = np.maximum(frames, 0.0)
     if sentinel_fraction > 0:
         mask = rng.random(frames.shape) < sentinel_fraction
         frames = np.where(mask, np.float32(NTL_FILL_SENTINEL), frames)
@@ -127,6 +139,7 @@ def generate_store(
     margin: int = 45,
     seed: int = 42,
     hurricanes: Dict[str, datetime.date] | None = None,
+    pixel_noise: float = 0.0,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Generate and save a packed synthetic store; returns (frames, dates).
 
@@ -134,7 +147,8 @@ def generate_store(
     the registry by default); one storm makes a store a third the size."""
     dates = synthetic_dates(hurricanes, margin)
     frames = generate_frames(
-        dates, n_counties, image_size, seed, hurricanes=hurricanes
+        dates, n_counties, image_size, seed, hurricanes=hurricanes,
+        pixel_noise=pixel_noise,
     )
     monthly, monthly_months = generate_monthly_composites(frames, dates, seed)
     save_store(

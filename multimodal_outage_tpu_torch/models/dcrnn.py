@@ -7,23 +7,19 @@ gives them: encoder/cell{l}/{gates,candidate}/proj/{kernel,bias},
 decoder/cell{l}/…, decoder/proj/{kernel,bias}. weights.load_variables
 and weights.from_flax carry a JAX tree across unchanged. The serving
 engine runs the whole seq2seq as one kernel (ops/dcrnn_stack.py); this
-module is its scan-path counterpart (ServingModel(dcrnn_stack=False)).
-Training with teacher forcing is not ported.
+module is its scan-path counterpart (ServingModel(dcrnn_stack=False)) and
+the st-GNN that ModifiedUNet trains, with scheduled sampling (teacher
+forcing) in train mode.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import torch
 import torch.nn as nn
 
 from multimodal_outage_tpu_torch.models.layers import Dense
-
-_TEACHER_FORCING = (
-    "DCRNN teacher forcing (training with targets) is not in the port yet; "
-    "it comes with the ROADMAP item 'DCRNN training'"
-)
 
 
 class DiffusionConv(nn.Module):
@@ -69,7 +65,16 @@ class DCRNN(nn.Module):
     """[B, N, T, input_dim] → [B, N, horizon, output_dim]: the encoder runs
     the stacked cells over T, the decoder over the horizon from a zero GO
     symbol, feeding each step's projected output to the next
-    (JAX models/dcrnn.py:156-255)."""
+    (JAX models/dcrnn.py:156-255).
+
+    Scheduled sampling: in train mode with teacher_forcing > 0 and
+    `targets` [B, N, horizon, output_dim] given, each decoder step flips
+    one coin for the whole batch with probability `tf_prob` (default
+    teacher_forcing) and on heads feeds the next step target_t instead of
+    its own output (JAX _DecoderStep, dcrnn.py:117-153). The horizon's
+    coins are drawn at once on the host from the CPU generator `sampling`
+    (the global one when None), so a Python branch picks each input and
+    the step needs no device sync."""
 
     def __init__(self, input_dim: int, output_dim: int = 256, horizon: int = 7,
                  rnn_units: int = 64, num_rnn_layers: int = 2,
@@ -90,14 +95,22 @@ class DCRNN(nn.Module):
         self.decoder = nn.ModuleDict({**cells(output_dim),
                                       "proj": Dense(rnn_units, output_dim, dtype)})
 
+    def coins(self, tf_prob: Optional[float], sampling: Optional[torch.Generator]) -> List[bool]:
+        """One coin per decoder step: heads (feed the target) with
+        probability tf_prob, drawn as uniform [0, 1) < tf_prob like
+        jax.random.bernoulli, so p = 0 and p = 1 are exact."""
+        p = self.teacher_forcing if tf_prob is None else float(tf_prob)
+        return (torch.rand(self.horizon, generator=sampling) < p).tolist()
+
     def forward(self, x: torch.Tensor, supports: Optional[torch.Tensor], train: bool = False,
-                targets: Optional[torch.Tensor] = None, **_) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                targets: Optional[torch.Tensor] = None, tf_prob: Optional[float] = None,
+                sampling: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` (dropout masks) is unused: DCRNN has no dropout."""
         if supports is None:
             # DCRNN has no graph-free mode: the diffusion is the model (pass
             # identity supports to turn mixing off)
             raise ValueError("DCRNN requires a supports array [S, N, N]; got None")
-        if targets is not None and train and self.teacher_forcing > 0.0:
-            raise NotImplementedError(_TEACHER_FORCING)
         dt = self.dtype
         x, sup = x.to(dt), supports.to(dt)
         b, n, t, _ = x.shape
@@ -106,12 +119,15 @@ class DCRNN(nn.Module):
             inp = x[:, :, ti]
             for l in range(self.n_layers):
                 states[l] = inp = self.encoder[f"cell{l}"](states[l], inp, sup)
+        teacher = targets is not None and train and self.teacher_forcing > 0.0
+        heads = self.coins(tf_prob, sampling) if teacher else [False] * self.horizon
         prev = x.new_zeros(b, n, self.output_dim)  # GO symbol
         outs = []
-        for _ in range(self.horizon):
+        for ti in range(self.horizon):
             inp = prev
             for l in range(self.n_layers):
                 states[l] = inp = self.decoder[f"cell{l}"](states[l], inp, sup)
-            prev = self.decoder["proj"](inp)
-            outs.append(prev)
+            out = self.decoder["proj"](inp)
+            outs.append(out)
+            prev = targets[:, :, ti].to(out.dtype) if heads[ti] else out
         return torch.stack(outs, dim=2)

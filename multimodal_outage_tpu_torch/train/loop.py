@@ -3,7 +3,9 @@
 epoch, early stopping on val_loss, best-k checkpoints, and at the end the
 best checkpoint swept over val and the held-out hurricane; and predict
 (JAX train/loop.py:901-1010), the same sweep of a checkpoint over the
-held-out hurricane.
+held-out hurricane. Both run either st-GNN, over the supports of its
+adjtype (data/adjacency.py model_adjtype); DCRNN runs as the module, in
+eval through its self-feeding decoder.
 
 Not here yet (each raises when asked for): grad accumulation, remat,
 resume, TensorBoard, profiling, NaN debugging, mesh/SPMD with
@@ -64,7 +66,8 @@ def check_supported(cfg: Config) -> None:
             "SPMD with sample_weight",
         ),
         "svd_aptinit (randomadj=False)": (
-            not cfg.model.gwnet.randomadj, "non-fused Graph WaveNet branches"
+            cfg.model.st_gnn == "gwnet" and not cfg.model.gwnet.randomadj,
+            "non-fused Graph WaveNet branches",
         ),
         "d2v_bundle": (cfg.model.d2v_bundle is not None, "A.4 resume and the run options"),
     }

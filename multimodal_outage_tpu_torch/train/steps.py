@@ -1,15 +1,19 @@
-"""Train and eval steps (JAX train/steps.py:74-132, 240-271).
+"""Train and eval steps (JAX train/steps.py:39-132, 240-271).
 
 A train step: forward in train mode (per-group BatchNorm statistics,
 running-stat EMA, dropout), MSE loss, backward, Adam at `lr`, and the
 regression metrics of the step's predictions. PyTorch runs it eagerly;
 the parameters, BN running stats and Adam moments are updated in place.
+With DCRNN's teacher forcing on, the step also passes the ground-truth
+future frames, the step's sampling probability and the coins' generator
+to the model.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from multimodal_outage_tpu_torch.core.metrics import regression_metrics
@@ -24,12 +28,43 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
     return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
 
 
+def sampling_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of one step's teacher-forcing coins: a function of
+    (seed, step) on a stream apart from the dropout generator's, as the
+    JAX step folds 0x5a into its dropout key (steps.py:64-71). The same on
+    the CPU and on the card. The seed is hashed into the 32 bits that the
+    CPU generator reads."""
+    state = np.random.SeedSequence([seed, step, 0x5A]).generate_state(1)[0]
+    return torch.Generator().manual_seed(int(state))
+
+
+def uses_teacher_forcing(model: torch.nn.Module) -> bool:
+    """True when the fusion model's DCRNN scheduled-sampling knob is on
+    (JAX steps.py:39-48)."""
+    cfg = getattr(model, "cfg", None)
+    return (cfg is not None and getattr(cfg, "st_gnn", None) == "dcrnn"
+            and cfg.dcrnn.teacher_forcing > 0.0)
+
+
+def tf_schedule(model: torch.nn.Module, step: int) -> np.float32:
+    """The sampling probability at `step`, in float32 (JAX steps.py:51-61):
+    the constant p₀ = cfg.dcrnn.teacher_forcing, or with tf_decay_steps
+    τ > 0 the inverse-sigmoid curriculum p₀·τ/(τ + e^{step/τ})."""
+    d = model.cfg.dcrnn
+    p0 = np.float32(d.teacher_forcing)
+    if d.tf_decay_steps <= 0:
+        return p0
+    tau = np.float32(d.tf_decay_steps)
+    return p0 * tau / (tau + np.exp(np.float32(step) / tau))
+
+
 def make_train_step(model: torch.nn.Module) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns train_step(state, batch, supports, lr, seed) → metrics: the
     step's {"loss", "mae", "mape", "rmse"} as detached 0-d tensors (no
     host sync). The step's gradients stay in each parameter's .grad until
     the next step."""
     params = [p for p in model.parameters() if p.requires_grad]
+    teacher = uses_teacher_forcing(model)
 
     def train_step(
         state: TrainState, batch: Batch, supports: Optional[torch.Tensor],
@@ -39,7 +74,11 @@ def make_train_step(model: torch.nn.Module) -> Callable[..., Dict[str, torch.Ten
             p.grad = None
         x = batch["x"]
         gen = step_generator(seed, state.step, x.device)
-        yhat = model(x, batch["date_feats"], supports, train=True, generator=gen)
+        kw = {}
+        if teacher:  # at the step count before this step increments it
+            kw = {"targets": batch["y"], "tf_prob": float(tf_schedule(model, state.step)),
+                  "sampling": sampling_generator(seed, state.step)}
+        yhat = model(x, batch["date_feats"], supports, train=True, generator=gen, **kw)
         loss = torch.mean(torch.square(yhat - batch["y"]))
         loss.backward()
         state.opt.step(lr)

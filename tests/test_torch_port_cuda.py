@@ -608,3 +608,47 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="device"):
         mp.max_pool_backward(torch.zeros(1, 4, 4, 4, device="meta"),
                              torch.zeros(1, 2, 2, 4, device="meta"))
+
+
+@pytest.mark.cuda
+def test_dcrnn_teacher_step_kernels_match_plain_pool(cuda):
+    """One float32 DCRNN train step at teacher_forcing 1 (N=4, T=3, B=2,
+    32² frames, every pool on the kernel path) with the pool kernels and
+    with their plain versions: 8 pool forwards (4 of them the eval-mode
+    teacher pass) and 4 backwards, and loss, every gradient leaf and the
+    BN running stats within 1e-4 of the plain step."""
+    from multimodal_outage_tpu_torch.models.fusion import build_model
+    from multimodal_outage_tpu_torch.train.state import create_train_state
+    from multimodal_outage_tpu_torch.train.steps import make_train_step
+
+    torch.backends.cudnn.deterministic = True
+    cfg = ModelConfig(st_gnn="dcrnn", compute_dtype="float32", pool="pallas",
+                      dcrnn=DCRNNConfig(teacher_forcing=1.0))
+    var = weights.init_variables(cfg, 3, 4, seed=0, image_size=32)
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(cuda)
+    batch = {"x": t(rng.standard_normal((2, 4, 3, 32, 32, 1))),
+             "y": t(rng.standard_normal((2, 4, 3, 32, 32, 1))),
+             "date_feats": t(np.tile([0, 0, 0, 2022, 9, 26], (2, 3, 1)))}
+    sup = torch.from_numpy(model_supports(cfg, 4)).to(cuda)
+    runs = []
+    try:
+        for plain in (False, True):
+            model = weights.load_variables(build_model(cfg, 3, 4, 32, pool_reference=plain), var)
+            model.to(cuda)
+            mp.max_pool_forward.launches = mp.max_pool_backward.launches = 0
+            loss = make_train_step(model)(create_train_state(model), batch, sup, 1e-3, 0)["loss"]
+            torch.cuda.synchronize()
+            launches = (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+            assert launches == ((0, 0) if plain else (8, 4))
+            runs.append((float(loss), {k: p.grad.clone() for k, p in model.named_parameters()
+                                       if p.grad is not None},
+                         {k: b.clone() for k, b in model.named_buffers()}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lk, gk, sk), (lp, gp, sp) = runs
+    assert abs(lk - lp) <= 1e-4 * abs(lp) and gk.keys() == gp.keys()
+    for k in gp:
+        assert (gk[k] - gp[k]).abs().max() <= 1e-4 * gp[k].abs().max() + 1e-7, k
+    for k in sp:
+        torch.testing.assert_close(sk[k], sp[k], rtol=1e-4, atol=1e-6)

@@ -11,6 +11,7 @@ tests/test_dress_rehearsal.py:153-156 holds them; the map arrays atol
 order). Round trips through one code path are held to equality.
 """
 
+import dataclasses
 import json
 import os
 
@@ -171,9 +172,47 @@ def test_evaluate_without_device_needs_a_card(trained, tiny_store_dir, tmp_path)
     assert not os.listdir(tmp_path)
 
 
-def test_evaluate_dcrnn_raises_until_dcrnn_trains(trained, tiny_store_dir):
-    with pytest.raises(NotImplementedError, match="DCRNN training"):
-        _evaluate(tiny_store_dir, trained[0], "--st_gnn", "dcrnn")
+def test_evaluate_dcrnn_raises_until_dcrnn_trains(tiny_cfg, tiny_store_dir, tmp_path):
+    """evaluate --st_gnn dcrnn raised until DCRNN trained in the port; now
+    DCRNN predict is held to JAX predict as test_predict_matches_jax_predict
+    holds Graph WaveNet's: a flax-initialised DCRNN state through the JAX
+    CheckpointManager and JAX predict, the same params (DCRNN has no
+    batch_stats) through the port's, both over the dual-random-walk
+    supports of the synthetic 4-county graph."""
+    cfg = tiny_cfg.replace(model=dataclasses.replace(tiny_cfg.model, st_gnn="dcrnn"))
+    store = jax_load_store(tiny_store_dir)
+    *_, test_ds = jax_loop.prepare_datasets(cfg, "michael")
+    supports = jax_loop.build_supports(cfg, store.n_counties, store)
+    assert supports.shape == (2, 4, 4)
+    model = jax_build_model(cfg.model, cfg.data.horizon)
+    sample = jax_loop._sample_batch(cfg, test_ds, jax_loop.make_pipeline(cfg, store))
+    state = jax_create_train_state(model, jax.random.PRNGKey(4), sample, supports)
+    batch_stats = jax.tree.map(
+        lambda v: v + 0.3 * jnp.arange(v.size, dtype=v.dtype).reshape(v.shape) / v.size,
+        state.batch_stats,
+    )
+    jax_dir = str(tmp_path / "jax")
+    ckpt = JaxCheckpointManager(jax_dir)
+    ckpt.save(0, {
+        "params": state.params, "batch_stats": batch_stats, "opt_state": state.opt_state,
+        "step": state.step,
+        "meta": {"epoch": jnp.int32(0), "best_val": jnp.float32(0),
+                 "best_epoch": jnp.int32(0), "bad_epochs": jnp.int32(0)},
+    }, metrics={"val_loss": 1.0})
+    ckpt.close()
+    jp, _, jm = jax_loop.predict(cfg, jax_dir, "michael")
+
+    port_dir = str(tmp_path / "port")
+    tree = weights.from_flax({"params": jax.device_get(state.params),
+                              "batch_stats": jax.device_get(batch_stats)})
+    CheckpointManager(port_dir).save(0, tree, metrics={"val_loss": 1.0})
+    out = _evaluate(tiny_store_dir, port_dir, "--st_gnn", "dcrnn",
+                    "--save_preds", str(tmp_path / "p"))
+    tp = np.load(tmp_path / "p" / "preds.npy")
+    assert tp.shape == np.asarray(jp).shape == (len(test_ds), 4, T, H, H, 1)
+    np.testing.assert_allclose(tp, np.asarray(jp), atol=5e-5, rtol=1e-4)
+    for k in KEYS:
+        np.testing.assert_allclose(out["metrics"][k], float(jm[k]), rtol=1e-4, err_msg=k)
 
 
 def test_checkpoint_reader_writes_nothing(tmp_path):

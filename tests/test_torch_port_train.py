@@ -385,7 +385,8 @@ def test_trained_module_feeds_the_serving_engine():
         (ModelConfig(remat=True), "grad_accum and remat"),
         (ModelConfig(gwnet=GWNetConfig(gcn_bool=False)), "non-fused Graph WaveNet branches"),
         (ModelConfig(gwnet=GWNetConfig(kernel_size=2)), "non-fused Graph WaveNet branches"),
-        (ModelConfig(st_gnn="dcrnn"), "ROADMAP item 'DCRNN training'"),
+        (ModelConfig(gwnet=GWNetConfig(reference_view_quirk=True)),
+         "non-fused Graph WaveNet branches"),
     ],
 )
 def test_unported_model_configs_raise(cfg, match):

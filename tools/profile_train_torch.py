@@ -5,6 +5,7 @@ pool="pallas" (the max-pool kernel pair), random weights and batch from
 a seed.
 
     python3 tools/profile_train_torch.py [--batch 8 16] [--steps 5] [--out FILE]
+        [--st_gnn dcrnn [--teacher_forcing P] [--tf_decay_steps TAU]]
 
 For each batch size: whether the step fits in device memory and its
 peak (torch.cuda.max_memory_allocated); the step's wall time (CUDA
@@ -15,7 +16,10 @@ events, p50), so that backward ≈ step − forward − Adam; and
 torch.profiler's device time per kernel over --steps steps, divided by
 their count and grouped by kind of work, with the device's busy share of
 the wall time. A batch size that runs out of memory is reported as not
-fitting, with the peak reached before the failure. Needs a CUDA card.
+fitting, with the peak reached before the failure. With --st_gnn dcrnn
+the st-GNN is the default DCRNN over the Florida graph's dual-random-walk
+supports, and with --teacher_forcing each step also encodes the batch's
+future frames (the eval-mode teacher pass). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -61,18 +65,21 @@ def p50(times):
     return times[len(times) // 2]
 
 
-def forward_split(torch, model, batch, sup, reps: int):
+def forward_split(torch, model, batch, sup, reps: int, **kw):
     """p50 CUDA-event ms of the train-mode forward (graph built, no
-    backward), whole and per top-level module."""
+    backward), whole and per top-level module; a module called twice in a
+    forward (the contraction and encoder with the teacher pass, given
+    kw = targets, tf_prob) counts both calls."""
     marks, hooks = {}, []
     for name, mod in model.named_children():
         def pre(m, inp, name=name):
-            marks.setdefault(name, []).append([torch.cuda.Event(enable_timing=True), None])
-            marks[name][-1][0].record()
+            marks.setdefault(name, []).append([len(whole), torch.cuda.Event(enable_timing=True),
+                                               None])
+            marks[name][-1][1].record()
 
         def post(m, inp, out, name=name):
-            marks[name][-1][1] = torch.cuda.Event(enable_timing=True)
-            marks[name][-1][1].record()
+            marks[name][-1][2] = torch.cuda.Event(enable_timing=True)
+            marks[name][-1][2].record()
 
         hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
     whole = []
@@ -80,7 +87,7 @@ def forward_split(torch, model, batch, sup, reps: int):
         for _ in range(reps):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            y = model(batch["x"], batch["date_feats"], sup, train=True)
+            y = model(batch["x"], batch["date_feats"], sup, train=True, **kw)
             end.record()
             end.synchronize()
             whole.append(start.elapsed_time(end))
@@ -89,7 +96,8 @@ def forward_split(torch, model, batch, sup, reps: int):
         for h in hooks:
             h.remove()
     torch.cuda.synchronize()
-    return p50(whole), {k: p50([a.elapsed_time(b) for a, b in v]) for k, v in marks.items()}
+    per_rep = lambda v: [sum(a.elapsed_time(b) for r_, a, b in v if r_ == r) for r in range(reps)]
+    return p50(whole), {k: p50(per_rep(v)) for k, v in marks.items()}
 
 
 def main() -> int:
@@ -99,16 +107,24 @@ def main() -> int:
         print("profile_train_torch: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from multimodal_outage_tpu_torch.core.config import ModelConfig
+    from multimodal_outage_tpu_torch.core.config import DCRNNConfig, ModelConfig
+    from multimodal_outage_tpu_torch.data.adjacency import model_supports
     from multimodal_outage_tpu_torch.models.fusion import build_model
     from multimodal_outage_tpu_torch.train.state import create_train_state
-    from multimodal_outage_tpu_torch.train.steps import make_train_step
+    from multimodal_outage_tpu_torch.train.steps import (
+        make_train_step,
+        tf_schedule,
+        uses_teacher_forcing,
+    )
     from multimodal_outage_tpu_torch.weights import init_variables, load_variables
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, nargs="+", default=[8, 16])
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--out", type=str, default=None, help="also write the report as JSON here")
+    ap.add_argument("--st_gnn", choices=("gwnet", "dcrnn"), default="gwnet")
+    ap.add_argument("--teacher_forcing", type=float, default=0.0)
+    ap.add_argument("--tf_decay_steps", type=int, default=0)
     args = ap.parse_args()
 
     card = subprocess.run(
@@ -116,9 +132,12 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    report = {"device": torch.cuda.get_device_name(0), "card": card}
-    cfg = ModelConfig(pool="pallas")
-    sup = torch.eye(67, device="cuda")[None]
+    report = {"device": torch.cuda.get_device_name(0), "card": card, "st_gnn": args.st_gnn,
+              "teacher_forcing": args.teacher_forcing, "tf_decay_steps": args.tf_decay_steps}
+    cfg = ModelConfig(pool="pallas", st_gnn=args.st_gnn,
+                      dcrnn=DCRNNConfig(teacher_forcing=args.teacher_forcing,
+                                        tf_decay_steps=args.tf_decay_steps))
+    sup = torch.from_numpy(model_supports(cfg, 67)).cuda()
     for b in args.batch:
         model = load_variables(build_model(cfg, 7, 67, 128), init_variables(cfg, 7, 67, seed=0))
         model.cuda()
@@ -145,7 +164,10 @@ def main() -> int:
                 end.record()
                 end.synchronize()
                 walls.append(start.elapsed_time(end))
-            fwd_ms, fwd_modules = forward_split(torch, model, batch, sup, args.steps)
+            tf = {}
+            if uses_teacher_forcing(model):
+                tf = {"targets": batch["y"], "tf_prob": float(tf_schedule(model, state.step))}
+            fwd_ms, fwd_modules = forward_split(torch, model, batch, sup, args.steps, **tf)
             adam = []
             for _ in range(args.steps):
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -8,8 +8,13 @@ epoch at full width through the CLI's code path and one through `fit`
 with the per-layer Graph WaveNet kernel, reads the trained checkpoint
 back through `evaluate` and `serve --checkpoint_path` (and a DCRNN
 checkpoint through `serve`), trains DCRNN with scheduled sampling for an
-epoch and reads that checkpoint back the same two ways, and checks that
-each path went through its kernels.
+epoch and reads that checkpoint back the same two ways, runs the run
+options (phase 9: `train --resume --tensorboard --profile_dir`, a
+float32 resumed run against the straight one, `pretrain-d2v` and `train
+--d2v_bundle`, and `serve` with `--adjtype doubletransition` (3
+supports), `--no_addaptadj` (1) and `--adjacency`, with kernels 2 and 3
+held to their plain versions at those supports), and checks that each
+path went through its kernels.
 
     python3 chip_smoke.py
 
@@ -23,6 +28,8 @@ times. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import glob
+import importlib
 import json
 import math
 import os
@@ -84,6 +91,10 @@ EVAL_RTOL, SERVE_RTOL = 1e-6, 1e-2
 # the same step with the plain pool, float32 (the bar of the port's
 # float32 kernels on the card)
 DCRNN_STEP_RTOL = 1e-4
+# phase 9a: a float32 run resumed after its first epoch against the same
+# run straight through, with deterministic cuDNN and no TF32: the same
+# steps on the same restored tensors, so any gap is a resume fault
+RESUME_RTOL = 1e-6
 
 
 def log(*a):
@@ -168,11 +179,16 @@ def check_double_conv(torch, F, dcm, gen):
     return rows, failures
 
 
-def check_gwnet_stack(torch, gsm, weights, cfg, gen):
+def check_gwnet_stack(torch, gsm, weights, cfg, gen, static=None, label="3b"):
     """Phase 3b: the stack kernel at B=1 and B=16, T=7, N=67: the bf16
     body (tensor cores, weights in fragment order) and the float32 body
-    (CUDA cores), each with its shared-memory bytes per block."""
+    (CUDA cores), each with its shared-memory bytes per block. The
+    supports are `static` ([S, 67, 67] on the card; the identity by
+    default) and the adaptive one when cfg.gwnet.addaptadj (phase 9c: S =
+    1 and 3)."""
     rows, failures = [], []
+    if static is None:
+        static = torch.eye(67, device="cuda")[None]
     var = weights.init_variables(cfg, 7, 67, seed=1)
     st, st_bs = var["params"]["st_gnn"], var["batch_stats"]["st_gnn"]
     # non-trivial running stats so the BN folding is exercised
@@ -186,13 +202,13 @@ def check_gwnet_stack(torch, gsm, weights, cfg, gen):
         sp = {k: v.cuda() for k, v in gsm.stack_params_from_module(st, st_bs, n_layers, dtype).items()}
         if dtype == torch.bfloat16:
             sp["frags"] = gsm.stack_fragments(sp)
-        sup = gsm.adaptive_supports(
-            torch.eye(67, device="cuda")[None], st["nodevec1"].cuda(), st["nodevec2"].cuda(), dtype
-        )
+        node = [st[k].cuda() if k in st else None for k in ("nodevec1", "nodevec2")]
+        sup = gsm.adaptive_supports(static, *node, dtype)
         smem = gsm.smem_bytes(67, cfg.st_gnn_in_dim, g.residual_channels, g.dilation_channels,
                               g.skip_channels, g.end_channels, cfg.feature_vector_size,
                               sup.shape[0], g.order, dtype)
-        log(f"phase 3b: {dn} body, {smem} bytes of shared memory per block at N=67")
+        log(f"phase {label}: {dn} body, {smem} bytes of shared memory per block at N=67, "
+            f"S={sup.shape[0]}")
         for b in (1, 16):
             x = torch.randn(b, 67, 7, cfg.st_gnn_in_dim, generator=gen, device="cuda").to(dtype)
             got = gsm.gwnet_stack_forward(x, sup, sp, order=cfg.gwnet.order)
@@ -211,7 +227,8 @@ def check_gwnet_stack(torch, gsm, weights, cfg, gen):
             nops = gsm.flops(b, 67, 7, sp, sup.shape[0], cfg.gwnet.order)
             t_bytes, t_ops = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * nops / PEAK_OPS[dn]
             row = {
-                "dtype": dn, "B": b, "N": 67, "T": 7, "max_abs_err": err, "ok": ok,
+                "dtype": dn, "B": b, "N": 67, "T": 7, "S": sup.shape[0], "max_abs_err": err,
+                "ok": ok,
                 "check": note, "ms": t_k, "plain_ms": t_p, "library_ms": None, "bytes": nbytes,
                 "flop": nops, "smem_bytes": smem, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -219,7 +236,7 @@ def check_gwnet_stack(torch, gsm, weights, cfg, gen):
             log("gwnet_stack", json.dumps(row))
             rows.append(row)
             if not ok:
-                failures.append(f"gwnet_stack {dn} B={b}: max err {err}")
+                failures.append(f"gwnet_stack {dn} B={b} S={sup.shape[0]}: max err {err}")
     return rows, failures
 
 
@@ -478,14 +495,16 @@ def serve_end_to_end(torch, cli, dcm, gsm, workdir):
     return store_dir, runs, launches
 
 
-def engine_vs_plain(torch, store_dir, st_gnn="gwnet", **engine_kw):
-    """Phases 4b and 4d: one full-width B=16 batch through a kernel engine
-    and through the same engine on the plain versions, on the card, in
-    bf16 and float32. engine_kw picks the st-GNN path (ServingModel's
-    gwnet_stack / gwnet_pallas / dcrnn_stack)."""
+def engine_vs_plain(torch, store_dir, st_gnn="gwnet", gwnet=None, **engine_kw):
+    """Phases 4b, 4d and 9c: one full-width B=16 batch through a kernel
+    engine and through the same engine on the plain versions, on the card,
+    in bf16 and float32. engine_kw picks the st-GNN path (ServingModel's
+    gwnet_stack / gwnet_pallas / dcrnn_stack); gwnet, a GWNetConfig, the
+    Graph WaveNet's supports (phase 9c: its adjtype and addaptadj)."""
     from multimodal_outage_tpu_torch.core.config import (
         DEFAULT_NTL_MEAN,
         DEFAULT_NTL_STD,
+        GWNetConfig,
         ModelConfig,
     )
     from multimodal_outage_tpu_torch.core.registry import HURRICANES
@@ -498,7 +517,8 @@ def engine_vs_plain(torch, store_dir, st_gnn="gwnet", **engine_kw):
 
     store = load_store(store_dir)
     ds = WindowDataset.from_case_study(store, {"michael": HURRICANES["michael"]}, 24, 7)
-    cfg = lambda dn: ModelConfig(compute_dtype=dn, st_gnn=st_gnn)
+    gw = gwnet or GWNetConfig()
+    cfg = lambda dn: ModelConfig(compute_dtype=dn, st_gnn=st_gnn, gwnet=gw)
     sup = model_supports(cfg("bfloat16"), 67, store.county_names)
     failures = []
     var = init_variables(cfg("bfloat16"), 7, 67, seed=0)
@@ -512,7 +532,8 @@ def engine_vs_plain(torch, store_dir, st_gnn="gwnet", **engine_kw):
     x, feats = batch["x"], batch["date_feats"]
     out = {k: e(x, feats) for k, e in engines.items()}
     torch.cuda.synchronize()
-    label = " ".join([st_gnn] + [f"{k}={v}" for k, v in engine_kw.items()])
+    label = " ".join([st_gnn] + [f"{k}={v}" for k, v in engine_kw.items()]
+                     + [f"adjtype={gw.adjtype} addaptadj={gw.addaptadj}"] * (gwnet is not None))
     # the float32 plain engine on the same (bf16-rounded) frames is the
     # accuracy yardstick for the bf16 engines
     for dn, truth in (("bfloat16", out[("float32", True)]), ("float32", None)):
@@ -929,6 +950,279 @@ def train_dcrnn_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, train_store):
             "serve_p50_ms": sv["latency"]["p50_ms"], "serve_launches": grew}
 
 
+def _rel_gap(a, b):
+    """max |a − b| / max |b| over two trees of tensors and numbers (0 where
+    both are all zero)."""
+    import torch
+
+    if isinstance(a, dict):
+        return max([_rel_gap(a[k], b[k]) for k in b] or [0.0])
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    diff = float((a - b).abs().max()) if b.numel() else 0.0
+    return diff / scale if scale else diff
+
+
+def resume_end_to_end(torch, cli, mp, workdir, train_store):
+    """Phase 9a: `train --pool pallas --epochs 1` at full width (bf16, B=8,
+    phase 5's store), then `--epochs 4 --resume --tensorboard
+    --profile_dir` of the same job: 15 steps in the resumed process, its
+    pool launches counted from 0 around exactly that run, the val rows of
+    epochs 0-3 once each, the last checkpoint at step 20 with an Adam count
+    of 20, a Chrome trace naming both max-pool kernels. Then in float32
+    (deterministic cuDNN, no TF32) `--epochs 2` straight against `--epochs
+    1` and `--resume --epochs 2`: the last checkpoints (params, BN
+    statistics, Adam state) and the final metrics within RESUME_RTOL."""
+    from multimodal_outage_tpu_torch.core.checkpoint import CheckpointManager
+
+    base = ["train", "--data_dir", train_store, "--case", "michael", "--dataset_range",
+            str(TRAIN_MARGIN), "--batch_size", "8", "--seed", "0", "--pool", "pallas"]
+    run_dir, prof_dir = os.path.join(workdir, "logs", "resume"), os.path.join(workdir, "profile")
+    cwd = os.getcwd()
+    os.chdir(workdir)  # the run directory is ./logs/<job_id>
+    try:
+        first = cli.run(base + ["--epochs", "1", "--job_id", "resume"])
+        mp.max_pool_forward.launches = mp.max_pool_backward.launches = 0
+        t0 = time.perf_counter()
+        out = cli.run(base + ["--epochs", "4", "--resume", "--tensorboard", "--profile_dir",
+                              prof_dir, "--job_id", "resume"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pool = (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+        torch.backends.cudnn.deterministic = True
+        try:
+            f32 = base + ["--compute_dtype", "float32"]
+            straight = cli.run(f32 + ["--epochs", "2", "--job_id", "f32_straight"])
+            cli.run(f32 + ["--epochs", "1", "--job_id", "f32_resumed"])
+            resumed = cli.run(f32 + ["--epochs", "2", "--resume", "--job_id", "f32_resumed"])
+        finally:
+            torch.backends.cudnn.deterministic = False
+    finally:
+        os.chdir(cwd)
+    local = out["train_steps"] - first["train_steps"]
+    evals = out["eval_forwards"]
+    want = (4 * local + 4 * evals, 4 * local)
+    log(f"phase 9a: train --resume {json.dumps(out)}; {wall:.3f} s wall; {local} steps in "
+        f"this process, {evals} eval forwards: pool launches (fwd, bwd) {pool}, expected {want}")
+    if local != 15 or pool != want:
+        raise RuntimeError(f"phase 9a: {local} local steps, pool launches {pool}, expected "
+                           f"15 and {want}")
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        val_epochs = [r["epoch"] for r in map(json.loads, f) if r["phase"] == "val"]
+    tree = CheckpointManager(os.path.join(run_dir, "checkpoints")).restore_latest()
+    log(f"phase 9a: val rows of epochs {val_epochs}; last checkpoint step {tree['step']}, "
+        f"Adam count {tree['opt_state']['count']}")
+    if val_epochs != [0, 1, 2, 3] or tree["step"] != 20 or tree["opt_state"]["count"] != 20:
+        raise RuntimeError("phase 9a: the resumed run's rows or checkpoint are off")
+    trace = os.path.join(prof_dir, "trace.json")
+    with open(trace) as f:
+        text = f.read()
+    names = {k: k in text for k in ("max_pool_fwd_kernel", "max_pool_bwd_kernel")}
+    log(f"phase 9a: profiler trace {os.path.getsize(trace)} bytes; names {names}")
+    if not all(names.values()):
+        raise RuntimeError(f"phase 9a: the trace misses a max-pool kernel: {names}")
+    events = glob.glob(os.path.join(run_dir, "tb", "events.out.tfevents*"))
+    writers = [m for m in ("tensorboardX", "torch.utils.tensorboard") if _importable(m)]
+    log(f"phase 9a: TensorBoard writers importable {writers}; event files {len(events)}"
+        + ("" if writers else " (the warning branch: metrics.jsonl only)"))
+    if bool(writers) != bool(events):
+        raise RuntimeError("phase 9a: TensorBoard event files do not match the writers found")
+    a = CheckpointManager(os.path.join(workdir, "logs", "f32_straight", "checkpoints"))
+    b = CheckpointManager(os.path.join(workdir, "logs", "f32_resumed", "checkpoints"))
+    ta, tb = a.restore_latest(), b.restore_latest()
+    gaps = {k: _rel_gap(tb[k], ta[k]) for k in ("params", "batch_stats")}
+    gaps.update({f"adam_{k}": _rel_gap(tb["opt_state"][k], ta["opt_state"][k])
+                 for k in ("mu", "nu")})
+    finals = [k for k in straight if k.startswith(("val_", "test_"))]
+    gaps["metrics"] = max(abs(resumed[k] - straight[k]) / abs(straight[k]) for k in finals)
+    exact = (ta["step"], ta["opt_state"]["count"]) == (tb["step"], tb["opt_state"]["count"])
+    log(f"phase 9a: float32 resumed vs straight, relative gaps {json.dumps(gaps)}; steps "
+        f"{(ta['step'], tb['step'])}, Adam counts equal {exact}")
+    if max(gaps.values()) > RESUME_RTOL or not exact:
+        raise RuntimeError(f"phase 9a: the resumed float32 run is not the straight one: {gaps}")
+    return {"train_step_ms_p50": out["train_step_ms_p50"], "resume_wall_s": wall,
+            "pool_launches": pool, "f32_gap": max(gaps.values()), "tb_events": len(events)}
+
+
+def _importable(module: str) -> bool:
+    try:
+        importlib.import_module(module)
+        return True
+    except ImportError:
+        return False
+
+
+def date2vec_end_to_end(torch, cli, workdir, train_store):
+    """Phase 9b: `pretrain-d2v` on the card at its defaults (k = 64, 2000
+    steps, batch 256): a finite final loss, logged beside the step-0 loss;
+    then `train --d2v_bundle <it> --epochs 1 --pool pallas`: the
+    checkpoint's frozen date2vec fc1/fc2 are the bundle's, bitwise."""
+    from multimodal_outage_tpu_torch.core.checkpoint import CheckpointManager
+    from multimodal_outage_tpu_torch.train.date2vec_pretrain import (
+        load_bundle,
+        pretrain_date2vec,
+    )
+
+    bundle_path = os.path.join(workdir, "d2v", "d2v.npz")
+    _, loss0 = pretrain_date2vec(steps=1, device="cuda")
+    t0 = time.perf_counter()
+    res = cli.run(["pretrain-d2v", "--out", bundle_path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"phase 9b: pretrain-d2v {json.dumps(res)}; {wall:.3f} s wall; step-0 loss {loss0!r}")
+    if not math.isfinite(res["final_loss"]) or res["final_loss"] >= loss0:
+        raise RuntimeError(f"phase 9b: final loss {res['final_loss']} from {loss0}")
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        cli.run(["train", "--data_dir", train_store, "--case", "michael", "--dataset_range",
+                 str(TRAIN_MARGIN), "--batch_size", "8", "--seed", "0", "--pool", "pallas",
+                 "--epochs", "1", "--d2v_bundle", bundle_path, "--job_id", "d2v"])
+    finally:
+        os.chdir(cwd)
+    tree = CheckpointManager(os.path.join(workdir, "logs", "d2v", "checkpoints")).restore()
+    bundle = load_bundle(bundle_path)
+    same = {f"{k}/{p}": torch.equal(tree["params"]["date2vec"][k][p],
+                                    torch.from_numpy(bundle[k][p]))
+            for k in ("fc1", "fc2") for p in ("kernel", "bias")}
+    log(f"phase 9b: train --d2v_bundle: checkpoint date2vec equals the bundle {same}")
+    if not all(same.values()):
+        raise RuntimeError(f"phase 9b: the checkpoint's date2vec is not the bundle's: {same}")
+    return {"pretrain_s": wall, "loss0": loss0, "final_loss": res["final_loss"]}
+
+
+def check_gwnet_layer_supports(torch, glm, gsm, weights, gen):
+    """Phase 9c: the per-layer kernel at B=8, N=67, T=7, full width, order
+    2, with S = 1 (the identity alone: --no_addaptadj) and S = 3 (the two
+    Florida dual-random-walk supports and the adaptive one: --adjtype
+    doubletransition), bf16 and float32, against its plain version; device
+    ms from torch.profiler (None where a profile dropped launches). main
+    runs it before phase 9a, whose profiled `train` is the process's
+    longest profiler session."""
+    from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
+    from multimodal_outage_tpu_torch.data.adjacency import model_supports
+
+    rows, failures = [], []
+    names = [f"{k}0_{p}" for k in ("filter_conv", "gate_conv", "skip_conv", "gconv")
+             for p in ("kernel", "bias")]
+    for gw in (GWNetConfig(addaptadj=False), GWNetConfig(adjtype="doubletransition")):
+        cfg = ModelConfig(gwnet=gw)
+        st = weights.init_variables(cfg, 7, 67, seed=1)["params"]["st_gnn"]
+        static = torch.from_numpy(model_supports(cfg, 67)).cuda()
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            w = [st[k].to("cuda", dtype).contiguous() for k in names]
+            node = [st[k].cuda() if k in st else None for k in ("nodevec1", "nodevec2")]
+            sup = gsm.adaptive_supports(static, *node, dtype)
+            x = torch.randn(8, 67, 7, 32, generator=gen, device="cuda").to(dtype)
+            args = (x, sup, *w)
+            got = glm.gwnet_layer_forward(*args, order=2)
+            want = glm.gwnet_layer_reference(*args, order=2)
+            truth = (None,) * 2
+            if dtype != torch.float32:
+                truth = glm.gwnet_layer_reference(*(a.float() for a in args), order=2)
+            torch.cuda.synchronize()
+            checks = [compare(g, wt, tr) for g, wt, tr in zip(got, want, truth)]
+            err, ok = max(c[0] for c in checks), all(c[1] for c in checks)
+            call = lambda: glm.gwnet_layer_forward(*args, order=2)
+            try:
+                dev_ms = device_ms(call, 50, "gwnet_layer_kernel")
+            except RuntimeError as e:  # the profile dropped launches: no mean
+                log(f"phase 9c: gwnet_layer {dn} S={sup.shape[0]} device ms not measured: {e}")
+                dev_ms = None
+            row = {
+                "dtype": dn, "B": 8, "S": sup.shape[0], "max_abs_err": err, "ok": ok,
+                "check": "; ".join(c[2] for c in checks if c[2]), "ms": events_ms(call, 50),
+                "device_ms": dev_ms,
+                "plain_ms": events_ms(lambda: glm.gwnet_layer_reference(*args, order=2), 10),
+                "smem_bytes": glm.smem_bytes(67, 32, 32, 256, sup.shape[0], 2, dtype),
+            }
+            log("gwnet_layer", json.dumps(row))
+            rows.append(row)
+            if not ok:
+                failures.append(f"gwnet_layer {dn} B=8 S={sup.shape[0]}: max err {err}")
+    return rows, failures
+
+
+def graph_flags_end_to_end(torch, cli, dcm, dsm, gsm, weights, store_dir, workdir, dcrnn_b1,
+                           gen):
+    """Phase 9c: the graph flags through kernels 2 and 5 at full width
+    (kernel 3's part: check_gwnet_layer_supports). `serve --seed 0` with
+    --adjtype doubletransition (S = 3) and with --adjtype transition
+    --no_addaptadj (S = 1), B = 1 and 16, one kernel-2 launch per
+    forward, each engine against the plain engine; kernel 2 alone at S = 3
+    and 1 (phase 3b's check); `serve --st_gnn dcrnn --seed 0 --adjacency
+    <a copy of the packaged CSV>`: phase 4c's B=1 metrics exactly."""
+    from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
+    from multimodal_outage_tpu_torch.data.adjacency import default_adjacency_path, model_supports
+
+    common = ["serve", "--data_dir", store_dir, "--case", "michael", "--dataset_range", "24",
+              "--seed", "0", "--latency_stats"]
+    runs, stack_rows, failures = {}, [], []
+    for s_count, flags, gw in (
+        (3, ["--adjtype", "doubletransition"], GWNetConfig(adjtype="doubletransition")),
+        (1, ["--adjtype", "transition", "--no_addaptadj"],
+         GWNetConfig(adjtype="transition", addaptadj=False)),
+    ):
+        for b, k in ((1, 3), (16, 2)):
+            dcm.fused_double_conv.launches = gsm.gwnet_stack_forward.launches = 0
+            out = cli.run(common + flags + ["--batch_size", str(b), "--max_batches", str(k)])
+            torch.cuda.synchronize()
+            grew, f = (dcm.fused_double_conv.launches, gsm.gwnet_stack_forward.launches), \
+                out["forwards"]
+            log(f"phase 9c: serve S={s_count} {' '.join(flags)} B={b}: {json.dumps(out)} "
+                f"launches (double_conv, gwnet_stack) {grew}")
+            if grew != (9 * f, f):
+                raise RuntimeError(f"phase 9c S={s_count} B={b}: {f} forwards launched {grew}")
+            if not all(math.isfinite(v) for v in out["metrics"].values()):
+                raise RuntimeError(f"phase 9c S={s_count} B={b}: non-finite metrics {out}")
+            runs[(s_count, b)] = out
+        cfg = ModelConfig(gwnet=gw)
+        rows, f2 = check_gwnet_stack(torch, gsm, weights, cfg, gen,
+                                     static=torch.from_numpy(model_supports(cfg, 67)).cuda(),
+                                     label="9c")
+        stack_rows += rows
+        failures += f2 + engine_vs_plain(torch, store_dir, gwnet=gw)
+    if failures:
+        raise RuntimeError("phase 9c: a kernel disagrees with its plain version:\n"
+                           + "\n".join(failures))
+    copy = os.path.join(workdir, "adj_copy.csv")
+    shutil.copyfile(default_adjacency_path(), copy)
+    counters = (dcm.fused_double_conv, dsm.dcrnn_stack_forward, gsm.gwnet_stack_forward)
+    for c in counters:
+        c.launches = 0
+    sd = cli.run(["serve", "--st_gnn", "dcrnn", "--data_dir", store_dir, "--case", "michael",
+                  "--dataset_range", "24", "--seed", "0", "--latency_stats", "--batch_size", "1",
+                  "--max_batches", "3", "--adjacency", copy])
+    torch.cuda.synchronize()
+    grew, f = tuple(c.launches for c in counters), sd["forwards"]
+    log(f"phase 9c: serve --st_gnn dcrnn --adjacency <copy> B=1 {json.dumps(sd)} launches "
+        f"(double_conv, dcrnn_stack, gwnet_stack) {grew}")
+    if grew != (9 * f, f, 0) or sd["metrics"] != dcrnn_b1["metrics"]:
+        raise RuntimeError(f"phase 9c: dcrnn --adjacency {sd['metrics']} launches {grew}, "
+                           f"phase 4c {dcrnn_b1['metrics']}")
+    for (s_count, b), out in runs.items():
+        log(f"phase 9c: serve S={s_count} B={b} p50 {out['latency']['p50_ms']:.3f} ms "
+            f"p90 {out['latency']['p90_ms']:.3f} ms")
+    return stack_rows, {f"S{k[0]}_B{k[1]}_p50_ms": v["latency"]["p50_ms"]
+                        for k, v in runs.items()}
+
+
+def by_supports(rows, b):
+    """Phase 9c's S = 1 and S = 3 rows of a kernel for the kernels line:
+    each S's largest error over both dtypes and its bf16 time at batch b
+    (device ms where the rows have it)."""
+    out = {}
+    for s_count in (1, 3):
+        mine = [r for r in rows if r["S"] == s_count]
+        bf = [r for r in mine if r["dtype"] == "bfloat16" and r["B"] == b][0]
+        out[f"max_abs_err_s{s_count}"] = max(r["max_abs_err"] for r in mine)
+        out[f"ms_s{s_count}"] = bf["ms"]
+        if "device_ms" in bf:
+            out[f"device_ms_s{s_count}"] = bf["device_ms"]
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1004,6 +1298,15 @@ def main() -> int:
         log(f"phase 7: {json.dumps(p7)}")
         p8 = train_dcrnn_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, train_store)
         log(f"phase 8: {json.dumps(p8)}")
+        gl9_rows, f9 = check_gwnet_layer_supports(torch, glm, gsm, weights, gen)
+        if f9:
+            raise RuntimeError("phase 9c: kernel 3 disagrees with its plain version:\n"
+                               + "\n".join(f9))
+        p9a = resume_end_to_end(torch, cli, mp, workdir, train_store)
+        p9b = date2vec_end_to_end(torch, cli, workdir, train_store)
+        st9_rows, p9c = graph_flags_end_to_end(torch, cli, dcm, dsm, gsm, weights, store_dir,
+                                               workdir, dcrnn_runs[1], gen)
+        log(f"phase 9: {json.dumps({**p9a, **p9b, **p9c})}")
 
     main_dc = [r for r in dc_rows if r["dtype"] == "bfloat16"]
     main_st = [r for r in st_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]
@@ -1030,6 +1333,7 @@ def main() -> int:
             "max_abs_err": main_st["max_abs_err"], "ms": main_st["ms"],
             "plain_ms": main_st["plain_ms"], "bound_ms": main_st["bound_ms"],
             "bound_by": main_st["bound_by"], "library_ms": None,
+            **by_supports(st9_rows, 1),
         },
     ]
     for i, name in enumerate(("max_pool_fwd", "max_pool_bwd")):
@@ -1052,7 +1356,7 @@ def main() -> int:
     # longer than the kernel, so its back-to-back `ms` times the host
     for name, src, replaces, n, row, extra in (
         ("gwnet_layer", "gwnet_layer.cu", "gwnet_pallas.py:187", layer_launches, main_gl,
-         {"device_ms": main_gl["device_ms"]}),
+         {"device_ms": main_gl["device_ms"], **by_supports(gl9_rows, 8)}),
         ("dcrnn_stack", "dcrnn_stack.cu", "dcrnn_stack_pallas.py:169", dcrnn_launches, main_ds,
          {}),
     ):

@@ -13,10 +13,13 @@
   evaluate — sweep a held-out hurricane with a checkpoint through the
              trainable model in eval mode, print the test metrics JSON,
              and write predictions, risk maps and rasters on request
+  pretrain-d2v — pretrain a Date2Vec bundle (.npz, the JAX package's
+             names) for --d2v_bundle, print {"out", "final_loss"}
 
-serve, train and evaluate run on the card unless --device cpu is given;
-without a card they raise rather than falling back. Every command prints
-one JSON object as its last line.
+serve, train, evaluate and pretrain-d2v run on the card unless --device
+cpu is given; without a card they raise rather than falling back. Every
+command prints one JSON object as its last line; train --num_runs N > 1
+prints {"runs": [<run 0's results>, ...]}.
 """
 
 from __future__ import annotations
@@ -65,9 +68,13 @@ def _parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--st_gnn", type=str, default="gwnet", choices=("gwnet", "dcrnn"),
                    help="spatio-temporal GNN: Graph WaveNet or DCRNN, each as one kernel")
+    _graph_flags(p)
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--weights", type=str, help=".npz written by weights.save_npz")
-    src.add_argument("--seed", type=int, help="random weights from this seed")
+    # not TrainConfig.seed: serve, like evaluate, draws a small store's
+    # synthetic graph at the default seed (ROADMAP §C)
+    src.add_argument("--seed", type=int, dest="weights_seed",
+                     help="random weights from this seed")
     src.add_argument("--checkpoint_path", type=str,
                      help="checkpoint directory written by train (its best step)")
     p.add_argument("--save_preds", type=str, default=None,
@@ -91,6 +98,17 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--tf_decay_steps", type=int, default=0,
                    help="with --teacher_forcing: the inverse-sigmoid decay constant τ, "
                    "p(step) = p0·τ/(τ + e^{step/τ}); 0 keeps p constant")
+    p.add_argument("--num_runs", type=int, default=1,
+                   help="repeat the run N times: run i is <job_id>_r<i> at seed + i")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from logs/<job_id>'s latest checkpoint, if it has one")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="also write TensorBoard scalars to logs/<job_id>/tb (needs "
+                   "tensorboardX or torch's writer; metrics.jsonl is always written)")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of a few train steps here")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="raise FloatingPointError at the first NaN or inf of a train step")
     _model_flags(p)
 
     p = sub.add_parser("evaluate", help="Sweep a held-out hurricane with a checkpoint")
@@ -106,7 +124,35 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--raster_maps", type=str, default=None,
                    help="write prediction raster PNGs here")
     _model_flags(p)
+
+    p = sub.add_parser("pretrain-d2v", help="Pretrain a Date2Vec bundle for --d2v_bundle")
+    p.add_argument("--out", type=str, default="d2v_model/d2v.npz")
+    p.add_argument("--k", type=int, default=64, help="embedding width (time_embed_size)")
+    p.add_argument("--steps", type=int, default=2000)
+    p.add_argument("--device", type=str, default=None, choices=("cuda", "cpu"),
+                   help="default: cuda (raises if there is no card)")
     return parser
+
+
+def _graph_flags(p: argparse.ArgumentParser) -> None:
+    """The model and graph flags that train, evaluate and serve share
+    with the JAX CLI (its cli.py:35-81)."""
+    p.add_argument("--n_counties", type=int, default=67,
+                   help="recorded in the config; the store's county count is used")
+    p.add_argument("--input_channels", type=int, default=1)
+    p.add_argument("--output_channels", type=int, default=1)
+    p.add_argument("--d2v_bundle", type=str, default=None,
+                   help=".npz Date2Vec bundle from pretrain-d2v, installed into fresh "
+                   "weights (a checkpoint's own Date2Vec stands)")
+    p.add_argument("--adjacency", type=str, default=None,
+                   help="adjacency CSV (default: the packaged Florida graph); its county "
+                   "order must be the store's")
+    p.add_argument("--adjtype", type=str, default=None,
+                   choices=("identity", "transition", "doubletransition"),
+                   help="Graph WaveNet's static supports (default identity, the "
+                   "reference's degenerate doubletransition)")
+    p.add_argument("--no_addaptadj", action="store_true",
+                   help="no learned adaptive adjacency in Graph WaveNet")
 
 
 def _model_flags(p: argparse.ArgumentParser) -> None:
@@ -128,43 +174,72 @@ def _model_flags(p: argparse.ArgumentParser) -> None:
                    help="two-pass BatchNorm statistics instead of the single sweep")
     p.add_argument("--device", type=str, default=None, choices=("cuda", "cpu"),
                    help="default: cuda (raises if there is no card)")
+    _graph_flags(p)
 
 
-def _config(args: argparse.Namespace, **train):
-    """The Config of train's and evaluate's flags; `train` adds
-    TrainConfig fields."""
+def _config(args: argparse.Namespace):
+    """The Config of the parsed flags, field by field as the JAX CLI's
+    _build_config (its cli.py:161-230) maps them; a flag a command lacks
+    takes the field's default."""
     from multimodal_outage_tpu_torch.core.config import (
         Config,
         DataConfig,
         DCRNNConfig,
+        GWNetConfig,
         ModelConfig,
         TrainConfig,
     )
 
+    gwnet = {}
+    if getattr(args, "adjtype", None):
+        gwnet["adjtype"] = args.adjtype
+    if getattr(args, "no_addaptadj", False):
+        gwnet["addaptadj"] = False
     return Config(
         data=DataConfig(
-            data_dir=args.data_dir, horizon=args.horizon,
-            dataset_range=args.dataset_range, image_size=args.image_size,
+            data_dir=args.data_dir, horizon=args.horizon, dataset_range=args.dataset_range,
+            image_size=args.image_size, n_counties=args.n_counties,
         ),
         model=ModelConfig(
-            compute_dtype=args.compute_dtype, pool=args.pool,
-            bn_single_pass=not args.bn_two_pass,
-            st_gnn=args.st_gnn,
+            st_gnn=args.st_gnn, input_channels=args.input_channels,
+            output_channels=args.output_channels, compute_dtype=args.compute_dtype,
+            d2v_bundle=args.d2v_bundle, pool=getattr(args, "pool", "reduce_window"),
+            bn_single_pass=not getattr(args, "bn_two_pass", False),
+            gwnet=GWNetConfig(**gwnet),
             dcrnn=DCRNNConfig(teacher_forcing=getattr(args, "teacher_forcing", 0.0),
                               tf_decay_steps=getattr(args, "tf_decay_steps", 0)),
         ),
-        train=TrainConfig(batch_size=args.batch_size, **train),
+        train=TrainConfig(
+            epochs=getattr(args, "epochs", 5), batch_size=args.batch_size,
+            job_id=getattr(args, "job_id", "test"), seed=getattr(args, "seed", 42),
+            resume=getattr(args, "resume", False),
+            tensorboard=getattr(args, "tensorboard", False),
+            profile_dir=getattr(args, "profile_dir", None),
+            debug_nans=getattr(args, "debug_nans", False),
+        ),
+        adjacency_csv=args.adjacency,
     )
 
 
 def train_command(args: argparse.Namespace) -> Dict[str, Any]:
-    """Run `train`; returns the final best-model metrics (train/loop.fit)."""
+    """Run `train`; returns the final best-model metrics (train/loop.fit),
+    or with --num_runs N > 1 {"runs": [...]}: run i is job <job_id>_r<i>
+    at seed + i (JAX cli.py:421-429)."""
+    import dataclasses
+
     from multimodal_outage_tpu_torch.core.device import resolve_device
     from multimodal_outage_tpu_torch.train.loop import fit
 
     device = resolve_device(args.device)  # fail before any work
-    cfg = _config(args, epochs=args.epochs, seed=args.seed, job_id=args.job_id)
-    return fit(cfg, test_case=args.case, device=device)
+    cfg = _config(args)
+    if args.num_runs == 1:
+        return fit(cfg, test_case=args.case, device=device)
+    runs = []
+    for i in range(args.num_runs):
+        train = dataclasses.replace(cfg.train, job_id=f"{cfg.train.job_id}_r{i}",
+                                    seed=cfg.train.seed + i)
+        runs.append(fit(cfg.replace(train=train), test_case=args.case, device=device))
+    return {"runs": runs}
 
 
 def evaluate_command(args: argparse.Namespace) -> Dict[str, Any]:
@@ -220,41 +295,39 @@ def evaluate_command(args: argparse.Namespace) -> Dict[str, Any]:
 
 def serve_command(args: argparse.Namespace) -> Dict[str, Any]:
     """Run `serve`; returns the JSON-able result (metrics, latency,
-    forwards, device)."""
+    forwards, device). The engine is built over the supports of the
+    flags' adjtype, addaptadj and adjacency; --d2v_bundle replaces the
+    Date2Vec of --seed's or --weights' variables, not a checkpoint's."""
     import numpy as np
 
     from multimodal_outage_tpu_torch.core.checkpoint import (
         require_checkpoints,
         restore_variables,
     )
-    from multimodal_outage_tpu_torch.core.config import Config, DataConfig, ModelConfig
     from multimodal_outage_tpu_torch.core.device import resolve_device
     from multimodal_outage_tpu_torch.data.adjacency import config_supports
     from multimodal_outage_tpu_torch.data.store import load_store
     from multimodal_outage_tpu_torch.serving import ServingModel, serve_eval
+    from multimodal_outage_tpu_torch.train.date2vec_pretrain import install_bundle, load_bundle
     from multimodal_outage_tpu_torch.weights import init_variables, load_npz
 
     if args.checkpoint_path is not None:
         require_checkpoints(args.checkpoint_path)
     device = resolve_device(args.device)  # fail before any work
     store = load_store(args.data_dir)
-    cfg = Config(
-        data=DataConfig(
-            data_dir=args.data_dir, image_size=args.image_size,
-            n_counties=store.n_counties, horizon=args.horizon,
-            dataset_range=args.dataset_range,
-        ),
-        model=ModelConfig(compute_dtype=args.compute_dtype, st_gnn=args.st_gnn),
-    )
+    cfg = _config(args)
     if args.checkpoint_path is not None:
         # the best step's params and batch_stats (JAX train/loop.py:773-848)
         variables = restore_variables(args.checkpoint_path)
-    elif args.weights is not None:
-        variables = load_npz(args.weights)
     else:
-        variables = init_variables(
-            cfg.model, args.horizon, store.n_counties, args.seed, args.image_size
-        )
+        if args.weights is not None:
+            variables = load_npz(args.weights)
+        else:
+            variables = init_variables(cfg.model, args.horizon, store.n_counties,
+                                       args.weights_seed, args.image_size)
+        if cfg.model.d2v_bundle:
+            variables["params"] = install_bundle(variables["params"],
+                                                 load_bundle(cfg.model.d2v_bundle))
     # the supports predict builds for the same Config
     serve = ServingModel(
         cfg.model, variables, config_supports(cfg, store), horizon=args.horizon,
@@ -275,6 +348,22 @@ def serve_command(args: argparse.Namespace) -> Dict[str, Any]:
         np.save(os.path.join(args.save_preds, "preds.npy"), np.concatenate(preds))
         out["save_preds"] = args.save_preds
     return out
+
+
+def pretrain_d2v_command(args: argparse.Namespace) -> Dict[str, Any]:
+    """Run `pretrain-d2v` (JAX cli.py:539-549): train the Date2Vec
+    autoencoder, save its bundle to --out; returns {"out", "final_loss"}."""
+    from multimodal_outage_tpu_torch.core.device import resolve_device
+    from multimodal_outage_tpu_torch.train.date2vec_pretrain import (
+        pretrain_date2vec,
+        save_bundle,
+    )
+
+    device = resolve_device(args.device)  # fail before any work
+    params, loss = pretrain_date2vec(k=args.k, steps=args.steps, device=device)
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    save_bundle(params, args.out)
+    return {"out": args.out, "final_loss": loss}
 
 
 def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
@@ -300,8 +389,8 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
 
         mean, std = compute_mean_std(load_store(args.data_dir), dataset_range=args.dataset_range)
         return {"mean": mean, "std": std}
-    return {"serve": serve_command, "train": train_command,
-            "evaluate": evaluate_command}[args.command](args)
+    return {"serve": serve_command, "train": train_command, "evaluate": evaluate_command,
+            "pretrain-d2v": pretrain_d2v_command}[args.command](args)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

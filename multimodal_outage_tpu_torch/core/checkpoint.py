@@ -5,7 +5,8 @@ orbax checkpoints is a ROADMAP item).
 Two stores under the checkpoint directory, each a directory of
 <step>.pt files written with torch.save:
   best/    the top-k steps by val_loss (min), for the end-of-fit sweeps
-  latest/  the most recent step (resuming from it is a ROADMAP item)
+  latest/  the most recent step, which `train --resume` continues from
+           (restore_latest)
 A tree is nested dicts of tensors and Python numbers; tensors are saved
 from the CPU. The stores are created by the first save: reading a
 directory never writes to it.
@@ -105,6 +106,15 @@ class CheckpointManager:
             if os.path.exists(path):
                 return torch.load(path, map_location="cpu", weights_only=True)
         raise FileNotFoundError(f"no checkpoint of step {step} in {self._dir}")
+
+    def restore_latest(self) -> Any:
+        """The tree of latest_step(), the resume path (JAX
+        core/checkpoint.py:92-102); FileNotFoundError if there is none."""
+        step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no latest checkpoint in {self._dir}")
+        path = os.path.join(self._latest, f"{step}.pt")
+        return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def require_checkpoints(directory: str) -> None:

@@ -109,9 +109,8 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """The JAX TrainConfig's fields and defaults (JAX core/config.py:171-212).
-    train/loop.py:fit raises on the knobs the port does not run yet
-    (grad_accum ≠ 1, resume, tensorboard, profile_dir, debug_nans);
-    donate_buffers and xla_vmem_limit_kib are XLA settings that the port
+    train/loop.py:fit raises on the knob the port does not run yet
+    (grad_accum ≠ 1); donate_buffers and xla_vmem_limit_kib are XLA settings that the port
     keeps for the config record and does not read."""
 
     epochs: int = 5  # reference lit.py:211

@@ -7,10 +7,14 @@ held-out hurricane. Both run either st-GNN, over the supports of its
 adjtype (data/adjacency.py model_adjtype); DCRNN runs as the module, in
 eval through its self-feeding decoder.
 
+fit also runs the JAX loop's run options: resume from the latest
+checkpoint, a pretrained Date2Vec bundle installed at init, TensorBoard
+scalars, a torch.profiler trace of a few steps, and NaN debugging.
+
 Not here yet (each raises when asked for): grad accumulation, remat,
-resume, TensorBoard, profiling, NaN debugging, mesh/SPMD with
-sample_weight, batch transform hooks. Batches come from the device
-pipeline (data/pipeline.py); the host prefetch path is not ported.
+mesh/SPMD with sample_weight, svd_aptinit, batch transform hooks.
+Batches come from the device pipeline (data/pipeline.py); the host
+prefetch path is not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from multimodal_outage_tpu_torch.data.dataset import (
 from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline
 from multimodal_outage_tpu_torch.data.store import load_store
 from multimodal_outage_tpu_torch.models.fusion import build_model
+from multimodal_outage_tpu_torch.train.date2vec_pretrain import install_bundle, load_bundle
 from multimodal_outage_tpu_torch.train.state import (
     TrainState,
     cosine_annealing_lr,
@@ -57,10 +62,6 @@ def check_supported(cfg: Config) -> None:
     todo = {
         "grad_accum != 1": (t.grad_accum != 1, "grad_accum and remat"),
         "remat": (cfg.model.remat, "grad_accum and remat"),
-        "resume": (t.resume, "resume, TensorBoard, profiling, debug_nans"),
-        "tensorboard": (t.tensorboard, "resume, TensorBoard, profiling, debug_nans"),
-        "profile_dir": (t.profile_dir is not None, "resume, TensorBoard, profiling, debug_nans"),
-        "debug_nans": (t.debug_nans, "resume, TensorBoard, profiling, debug_nans"),
         "a device mesh": (
             mesh.model != 1 or mesh.time != 1 or mesh.data not in (-1, 1),
             "SPMD with sample_weight",
@@ -69,7 +70,6 @@ def check_supported(cfg: Config) -> None:
             cfg.model.st_gnn == "gwnet" and not cfg.model.gwnet.randomadj,
             "non-fused Graph WaveNet branches",
         ),
-        "d2v_bundle": (cfg.model.d2v_bundle is not None, "A.4 resume and the run options"),
     }
     for what, (asked, item) in todo.items():
         if asked:
@@ -129,6 +129,59 @@ def _ckpt_tree(state: TrainState, epoch: int, best_val: float, best_epoch: int, 
     }
 
 
+def _initial_variables(cfg: Config, n_counties: int):
+    """init_variables from cfg.train.seed, with the Date2Vec bundle's
+    fc1/fc2 installed when cfg.model.d2v_bundle names one (JAX
+    train/state.py:53-59)."""
+    variables = init_variables(cfg.model, cfg.data.horizon, n_counties, cfg.train.seed,
+                               cfg.data.image_size)
+    if cfg.model.d2v_bundle:
+        variables["params"] = install_bundle(variables["params"],
+                                             load_bundle(cfg.model.d2v_bundle))
+    return variables
+
+
+class _StepTrace:
+    """The profiling window of fit (JAX train/loop.py:637-667): a
+    torch.profiler session, CPU activity plus the card's, from the
+    process's local step `log_every` for `profile_steps` steps; at its
+    end the device is synchronized and a Chrome trace is written to
+    <profile_dir>/trace.json. Leaving the `with` block closes and writes
+    a window the loop left open, also on an exception."""
+
+    def __init__(self, profile_dir: Optional[str], start: int, steps: int, dev: torch.device):
+        self.dir, self.start, self.stop_at, self.dev = profile_dir, start, start + steps, dev
+        self.prof = None
+
+    def before_step(self, step_count: int) -> None:
+        if self.dir and self.prof is None and step_count == self.start:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+
+    def after_step(self, step_count: int) -> None:
+        if self.prof is not None and step_count >= self.stop_at:
+            self.stop()
+
+    def __enter__(self) -> "_StepTrace":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        self.prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+        self.prof = None
+
+
 def fit(
     cfg: Config,
     test_case: str = "michael",
@@ -137,14 +190,25 @@ def fit(
     device=None,
 ) -> Dict[str, float]:
     """Train with early stopping; returns the best model's val and test
-    metrics, plus the run's counts (train_steps, eval_forwards) and, on
-    the card, train_step_ms_p50: the median CUDA-event time of a train
-    step after the run's first."""
+    metrics, plus the run's counts and, on the card, train_step_ms_p50:
+    the median CUDA-event time of a train step after this process's
+    first. train_steps is the global step (state.step, restored by a
+    resume); eval_forwards counts this process's eval forwards.
+
+    cfg.train.resume continues from the latest checkpoint, if there is
+    one (else it starts fresh, as the JAX loop does): params, BN running
+    statistics, Adam's moments and count, the global step, and the
+    early-stopping state; the epoch after the checkpoint's is the first.
+    The dropout generator and DCRNN's teacher-forcing coins and schedule
+    are functions of (seed, global step) and the batch order of seed +
+    epoch, so a resumed run repeats the uninterrupted one. The train
+    rows' "step" and the profiling window count this process's steps
+    (JAX train/loop.py:602, 637-667)."""
     leave_one_out(test_case)  # fail fast on bad flags before any work
     check_supported(cfg)
     dev = resolve_device(device)
     run_dir = run_dir or os.path.join(cfg.train.checkpoint_dir, cfg.train.job_id)
-    logger = RunLogger(run_dir, config=asdict(cfg))
+    logger = RunLogger(run_dir, config=asdict(cfg), tensorboard=cfg.train.tensorboard)
     ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"), cfg.train.keep_top_k)
 
     ds, train_idx, val_idx, test_ds = prepare_datasets(cfg, test_case)
@@ -155,66 +219,84 @@ def fit(
     supports = torch.from_numpy(config_supports(cfg, store)).to(dev)
     horizon, size = cfg.data.horizon, cfg.data.image_size
     model = build_model(cfg.model, horizon, store.n_counties, size)
-    load_variables(model, init_variables(cfg.model, horizon, store.n_counties,
-                                         cfg.train.seed, size))
+    load_variables(model, _initial_variables(cfg, store.n_counties))
     model.to(dev)
     state = create_train_state(model)
     if progress:
         print(f"Model parameters: {param_count(model):,}")
-    train_step, predict_step = make_train_step(model), make_predict_step(model)
+    train_step = make_train_step(model, debug_nans=cfg.train.debug_nans)
+    predict_step = make_predict_step(model)
     pipe = DevicePipeline(store, cfg.data.mean, cfg.data.std, size,
                           getattr(torch, cfg.data.device_dtype), dev)
 
-    best_val, best_epoch, bad_epochs = float("inf"), -1, 0
+    best_val, best_epoch, bad_epochs, start_epoch = float("inf"), -1, 0, 0
+    if cfg.train.resume and ckpt.latest_step() is not None:
+        tree = ckpt.restore_latest()
+        load_variables(model, tree)
+        state.opt.load_state_tree(tree["opt_state"])
+        state.step = int(tree["step"])
+        meta = tree["meta"]
+        start_epoch = int(meta["epoch"]) + 1
+        best_val, best_epoch = float(meta["best_val"]), int(meta["best_epoch"])
+        bad_epochs = int(meta["bad_epochs"])
+        if progress:
+            print(f"Resumed from epoch {start_epoch - 1} (best_val={best_val:.5f})")
+
     n_eval = lambda n: -(-n // cfg.train.batch_size)
     eval_forwards = 0
+    step_count = 0  # this process's train steps
+    trace = _StepTrace(cfg.train.profile_dir, cfg.train.log_every, cfg.train.profile_steps, dev)
     step_events: List[Tuple[torch.cuda.Event, torch.cuda.Event]] = []
-    for epoch in range(cfg.train.epochs):
-        lr = cosine_annealing_lr(epoch, cfg.train.lr, cfg.train.cosine_t_max)
-        t0 = time.time()
-        metric_sum: Dict[str, torch.Tensor] = {}
-        metric_count = 0
-        for batch in _epoch_iter(ds, train_idx, cfg, True, cfg.train.seed + epoch, pipe):
-            if dev.type == "cuda":
-                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                ev[0].record()
-            metrics = train_step(state, batch, supports, lr, cfg.train.seed)
-            if dev.type == "cuda":
-                ev[1].record()
-                step_events.append(ev)
-            if state.step % cfg.train.log_every == 0:
-                logger.log({
-                    "phase": "train", "epoch": epoch, "step": state.step, "lr": lr,
-                    **{f"train_{k}": float(v) for k, v in metrics.items()},
-                    **device_memory_stats(dev),
-                })
-            # accumulated on the device: no host sync per step
-            metric_sum = {k: metric_sum.get(k, 0) + v for k, v in metrics.items()}
-            metric_count += 1
-        train_metrics = {k: float(v) / metric_count for k, v in metric_sum.items()}
+    with trace:
+        for epoch in range(start_epoch, cfg.train.epochs):
+            lr = cosine_annealing_lr(epoch, cfg.train.lr, cfg.train.cosine_t_max)
+            t0 = time.time()
+            metric_sum: Dict[str, torch.Tensor] = {}
+            metric_count = 0
+            for batch in _epoch_iter(ds, train_idx, cfg, True, cfg.train.seed + epoch, pipe):
+                trace.before_step(step_count)
+                if dev.type == "cuda":
+                    ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    ev[0].record()
+                metrics = train_step(state, batch, supports, lr, cfg.train.seed)
+                if dev.type == "cuda":
+                    ev[1].record()
+                    step_events.append(ev)
+                step_count += 1
+                trace.after_step(step_count)
+                if step_count % cfg.train.log_every == 0:
+                    logger.log({
+                        "phase": "train", "epoch": epoch, "step": step_count, "lr": lr,
+                        **{f"train_{k}": float(v) for k, v in metrics.items()},
+                        **device_memory_stats(dev),
+                    })
+                # accumulated on the device: no host sync per step
+                metric_sum = {k: metric_sum.get(k, 0) + v for k, v in metrics.items()}
+                metric_count += 1
+            train_metrics = {k: float(v) / metric_count for k, v in metric_sum.items()}
 
-        val_metrics = evaluate(predict_step, ds, val_idx, cfg, supports, pipe)
-        eval_forwards += n_eval(len(val_idx))
-        dt = time.time() - t0
-        tiles = len(train_idx) * store.n_counties * horizon
-        logger.log({
-            "phase": "val", "epoch": epoch, "epoch_seconds": dt,
-            "train_tiles_per_sec": tiles / dt,
-            **{f"val_{k}": v for k, v in val_metrics.items()},
-        })
-        if progress:
-            print(f"epoch {epoch}: train_loss={train_metrics.get('loss', float('nan')):.5f} "
-                  f"val_loss={val_metrics['loss']:.5f} ({dt:.1f}s, lr={lr:.2e})")
-        if val_metrics["loss"] < best_val:
-            best_val, best_epoch, bad_epochs = val_metrics["loss"], epoch, 0
-        else:
-            bad_epochs += 1
-        ckpt.save(epoch, _ckpt_tree(state, epoch, best_val, best_epoch, bad_epochs),
-                  metrics={"val_loss": val_metrics["loss"]})
-        if bad_epochs >= cfg.train.early_stop_patience:
+            val_metrics = evaluate(predict_step, ds, val_idx, cfg, supports, pipe)
+            eval_forwards += n_eval(len(val_idx))
+            dt = time.time() - t0
+            tiles = len(train_idx) * store.n_counties * horizon
+            logger.log({
+                "phase": "val", "epoch": epoch, "epoch_seconds": dt,
+                "train_tiles_per_sec": tiles / dt,
+                **{f"val_{k}": v for k, v in val_metrics.items()},
+            })
             if progress:
-                print(f"Early stopping at epoch {epoch}")
-            break
+                print(f"epoch {epoch}: train_loss={train_metrics.get('loss', float('nan')):.5f} "
+                      f"val_loss={val_metrics['loss']:.5f} ({dt:.1f}s, lr={lr:.2e})")
+            if val_metrics["loss"] < best_val:
+                best_val, best_epoch, bad_epochs = val_metrics["loss"], epoch, 0
+            else:
+                bad_epochs += 1
+            ckpt.save(epoch, _ckpt_tree(state, epoch, best_val, best_epoch, bad_epochs),
+                      metrics={"val_loss": val_metrics["loss"]})
+            if bad_epochs >= cfg.train.early_stop_patience:
+                if progress:
+                    print(f"Early stopping at epoch {epoch}")
+                break
 
     # the best checkpoint, swept over val and the held-out hurricane
     # (reference PrintMetricsCallback / TestBestModelCallback, lit.py:74-140)

@@ -15,7 +15,7 @@ from typing import Any, Dict
 import torch
 import torch.nn as nn
 
-from multimodal_outage_tpu_torch.weights import unflatten
+from multimodal_outage_tpu_torch.weights import flatten, unflatten
 
 
 class Adam:
@@ -53,6 +53,25 @@ class Adam:
     def state_tree(self) -> Dict[str, Any]:
         return {"mu": unflatten(dict(self.mu)), "nu": unflatten(dict(self.nu)),
                 "count": self.count}
+
+    @torch.no_grad()
+    def load_state_tree(self, tree: Dict[str, Any]) -> None:
+        """The inverse of state_tree(): copy the moments onto the live
+        parameters' devices and dtypes and set the step count, which sets
+        the bias correction. Every parameter path must be given, and no
+        other."""
+        for name in ("mu", "nu"):
+            given = flatten(tree[name])
+            missing = sorted(set(self.params) - set(given))
+            extra = sorted(set(given) - set(self.params))
+            if missing or extra:
+                raise ValueError(f"Adam {name}: missing {missing}, extra {extra}")
+            for k, dst in getattr(self, name).items():
+                if tuple(given[k].shape) != tuple(dst.shape):
+                    raise ValueError(f"Adam {name} {k}: shape {tuple(given[k].shape)} given, "
+                                     f"{tuple(dst.shape)} wanted")
+                dst.copy_(torch.as_tensor(given[k]).to(dst.device, dst.dtype))
+        self.count = int(tree["count"])
 
 
 @dataclass

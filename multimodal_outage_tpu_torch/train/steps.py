@@ -6,11 +6,13 @@ regression metrics of the step's predictions. PyTorch runs it eagerly;
 the parameters, BN running stats and Adam moments are updated in place.
 With DCRNN's teacher forcing on, the step also passes the ground-truth
 future frames, the step's sampling probability and the coins' generator
-to the model.
+to the model. With debug_nans the step raises FloatingPointError at the
+first non-finite value, as the JAX package's jax_debug_nans does.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import numpy as np
@@ -58,11 +60,23 @@ def tf_schedule(model: torch.nn.Module, step: int) -> np.float32:
     return p0 * tau / (tau + np.exp(np.float32(step) / tau))
 
 
-def make_train_step(model: torch.nn.Module) -> Callable[..., Dict[str, torch.Tensor]]:
+def _check_finite(v: torch.Tensor, what: str, step: int) -> None:
+    if not bool(torch.isfinite(v).all()):
+        raise FloatingPointError(f"debug_nans: non-finite {what} at step {step}")
+
+
+def make_train_step(model: torch.nn.Module,
+                    debug_nans: bool = False) -> Callable[..., Dict[str, torch.Tensor]]:
     """Returns train_step(state, batch, supports, lr, seed) → metrics: the
     step's {"loss", "mae", "mape", "rmse"} as detached 0-d tensors (no
     host sync). The step's gradients stay in each parameter's .grad until
-    the next step."""
+    the next step.
+
+    debug_nans: the forward output and the loss are checked on the host
+    each step (a sync), and the backward runs under
+    torch.autograd.detect_anomaly(check_nan=True) for that step only;
+    either raises FloatingPointError at the first NaN or inf (backward:
+    NaN), before the parameters are updated."""
     params = [p for p in model.parameters() if p.requires_grad]
     teacher = uses_teacher_forcing(model)
 
@@ -78,9 +92,20 @@ def make_train_step(model: torch.nn.Module) -> Callable[..., Dict[str, torch.Ten
         if teacher:  # at the step count before this step increments it
             kw = {"targets": batch["y"], "tf_prob": float(tf_schedule(model, state.step)),
                   "sampling": sampling_generator(seed, state.step)}
-        yhat = model(x, batch["date_feats"], supports, train=True, generator=gen, **kw)
-        loss = torch.mean(torch.square(yhat - batch["y"]))
-        loss.backward()
+        anomaly = (torch.autograd.detect_anomaly(check_nan=True) if debug_nans
+                   else contextlib.nullcontext())
+        with anomaly:
+            yhat = model(x, batch["date_feats"], supports, train=True, generator=gen, **kw)
+            loss = torch.mean(torch.square(yhat - batch["y"]))
+            if debug_nans:
+                _check_finite(yhat, "forward output", state.step)
+                _check_finite(loss, "loss", state.step)
+            try:
+                loss.backward()
+            except RuntimeError as e:  # detect_anomaly's report of a NaN gradient
+                if debug_nans and "nan values" in str(e):
+                    raise FloatingPointError(f"debug_nans: step {state.step}: {e}") from e
+                raise
         state.opt.step(lr)
         state.step += 1
         with torch.no_grad():

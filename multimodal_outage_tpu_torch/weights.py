@@ -149,6 +149,37 @@ def _dcrnn_params(cfg: ModelConfig, n_supports: int, dense) -> Tree:
             "decoder": {**cells(fvs), "proj": dense(u, fvs)}}
 
 
+def init_date2vec(k: int, seed: int) -> Tree:
+    """Random params of models/date2vec.py Date2VecAutoencoder (fc1..fc5)
+    as float32 numpy arrays, drawn with numpy from `seed` after flax's
+    initializers as the JAX Date2Vec uses them: lecun_normal kernels
+    (fc1, fc2 scaled inversely by the raw feature magnitudes), zero
+    biases. The values are not flax's."""
+    rng = np.random.default_rng(seed)
+    widths = {"fc1": (6, k // 2), "fc2": (6, k // 2 + k % 2), "fc3": (k, k // 2),
+              "fc4": (k // 2, 6), "fc5": (6, 6)}
+    params: Tree = {}
+    for name, (cin, cout) in widths.items():
+        kernel = _lecun(rng, (cin, cout), cin)
+        if name in ("fc1", "fc2"):
+            kernel = kernel / _D2V_FEATURE_SCALE[:, None]
+        params[name] = {"kernel": kernel, "bias": np.zeros(cout, np.float32)}
+    return params
+
+
+def date2vec_autoencoder(params: Tree) -> torch.nn.Module:
+    """The pretraining module holding a Date2Vec autoencoder's params:
+    fc1..fc5 as the JAX package's flax tree holds them (numpy or JAX
+    arrays, Dense kernels [in, out]) or as init_date2vec draws them. Its
+    width k is read off fc1 and fc2; every path must match
+    (load_variables)."""
+    # models/ imports this module (layers.py: conv_transpose_weight)
+    from multimodal_outage_tpu_torch.models.date2vec import Date2VecAutoencoder
+
+    k = np.shape(params["fc1"]["kernel"])[1] + np.shape(params["fc2"]["kernel"])[1]
+    return load_variables(Date2VecAutoencoder(k), {"params": params})
+
+
 def init_variables(
     cfg: ModelConfig, horizon: int, n_counties: int, seed: int,
     image_size: int = 128,

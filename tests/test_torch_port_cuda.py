@@ -187,7 +187,13 @@ SMALL = GWNetConfig(
     "gw,n,b",
     [(SMALL, 7, 2), (GWNetConfig(), 67, 1), (GWNetConfig(), 67, 16),
      (GWNetConfig(addaptadj=False), 20, 2),  # one support
-     (GWNetConfig(adjtype="doubletransition", order=3), 9, 2)],  # 3 supports, order 3
+     (GWNetConfig(adjtype="doubletransition", order=3), 9, 2),  # 3 supports, order 3
+     # the full-width shapes of --adjtype doubletransition (S = 3: its bf16
+     # body reads the weights from L2, they do not fit beside the buffers)
+     # and --adjtype transition --no_addaptadj (S = 1)
+     (GWNetConfig(adjtype="doubletransition"), 67, 1),
+     (GWNetConfig(adjtype="doubletransition"), 67, 16),
+     (GWNetConfig(adjtype="transition", addaptadj=False), 67, 16)],
 )
 def test_stack_kernel_matches_plain(cuda, dtype, gw, n, b):
     cfg = ModelConfig(gwnet=gw)
@@ -356,12 +362,14 @@ def _layer_args(b, n, t, c, cd, cs, s_count, order, dtype, device, seed=0):
 
 
 # (B, N, T, C, Cd, Cs, S, order): the full-width layer at the batch sizes
-# of serving and training, small shapes with 1 and 3 supports, and one
+# of serving and training, and at B=8 with 1 and 3 supports (--no_addaptadj,
+# --adjtype doubletransition), small shapes with 1 and 3 supports, and one
 # whose x and weight rows are not 16-byte multiples (C = 12, Cs = 36) and
 # whose diffusion terms pad (Cd = 20 → 32 columns)
 LAYER_SHAPES = [(1, 67, 7, 32, 32, 256, 2, 2), (8, 67, 7, 32, 32, 256, 2, 2),
-                (16, 67, 7, 32, 32, 256, 2, 2), (2, 7, 3, 8, 8, 16, 1, 2), (2, 9, 3, 8, 12, 16, 3, 3),
-                (3, 19, 5, 12, 20, 36, 2, 2)]
+                (16, 67, 7, 32, 32, 256, 2, 2), (8, 67, 7, 32, 32, 256, 1, 2),
+                (8, 67, 7, 32, 32, 256, 3, 2), (2, 7, 3, 8, 8, 16, 1, 2),
+                (2, 9, 3, 8, 12, 16, 3, 3), (3, 19, 5, 12, 20, 36, 2, 2)]
 
 
 @pytest.mark.cuda

@@ -57,6 +57,7 @@ from multimodal_outage_tpu_torch.core.config import (
     Config,
     DataConfig,
     GWNetConfig,
+    MeshConfig,
     ModelConfig,
     TrainConfig,
 )
@@ -396,20 +397,29 @@ def test_unported_model_configs_raise(cfg, match):
 
 @pytest.mark.parametrize(
     "train",
-    [TrainConfig(grad_accum=2), TrainConfig(resume=True), TrainConfig(tensorboard=True),
-     TrainConfig(profile_dir="p"), TrainConfig(debug_nans=True)],
+    [TrainConfig(grad_accum=2), TrainConfig(grad_accum=0),
+     Config(model=ModelConfig(remat=True)), Config(mesh=MeshConfig(model=2)),
+     Config(model=ModelConfig(gwnet=GWNetConfig(randomadj=False)))],
 )
 def test_unported_train_knobs_raise(train):
+    """The knobs fit does not run yet (grad_accum, remat, a mesh,
+    svd_aptinit) raise; resume, tensorboard, profile_dir, debug_nans and
+    d2v_bundle run (tests/test_torch_port_resume.py,
+    tests/test_torch_port_run_options.py)."""
+    cfg = train if isinstance(train, Config) else Config(train=train)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loop.check_supported(Config(train=train))
+        loop.check_supported(cfg)
+    loop.check_supported(Config(train=TrainConfig(resume=True, tensorboard=True,
+                                                  profile_dir="p", debug_nans=True)))
 
 
-def test_d2v_bundle_raises_until_installed():
-    """A pretrained Date2Vec bundle is not installed yet: asking for one
-    raises instead of training with a random Date2Vec."""
-    with pytest.raises(NotImplementedError, match="A.4"):
-        loop.check_supported(Config(model=ModelConfig(d2v_bundle="d2v.npz")))
-    loop.check_supported(Config())
+def test_d2v_bundle_raises_until_installed(tmp_path):
+    """A pretrained Date2Vec bundle is installed at init, or fit raises:
+    a bundle that cannot be read never trains with a random Date2Vec."""
+    cfg = Config(model=ModelConfig(d2v_bundle=str(tmp_path / "missing.npz")))
+    loop.check_supported(cfg)
+    with pytest.raises(FileNotFoundError):
+        loop._initial_variables(cfg, 4)
 
 
 def test_config_copies_match_jax_defaults():

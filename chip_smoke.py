@@ -13,8 +13,11 @@ options (phase 9: `train --resume --tensorboard --profile_dir`, a
 float32 resumed run against the straight one, `pretrain-d2v` and `train
 --d2v_bundle`, and `serve` with `--adjtype doubletransition` (3
 supports), `--no_addaptadj` (1) and `--adjacency`, with kernels 2 and 3
-held to their plain versions at those supports), and checks that each
-path went through its kernels.
+held to their plain versions at those supports), trains, evaluates and
+serves the non-fused Graph WaveNet (phase 10: `--gwnet_kernel_size 2
+--svd_aptinit`, engines for `--no_gcn` and kernel_size 2 against plain,
+and reference_view_quirk through kernel 3), and checks that each path
+went through its kernels.
 
     python3 chip_smoke.py
 
@@ -496,11 +499,12 @@ def serve_end_to_end(torch, cli, dcm, gsm, workdir):
 
 
 def engine_vs_plain(torch, store_dir, st_gnn="gwnet", gwnet=None, **engine_kw):
-    """Phases 4b, 4d and 9c: one full-width B=16 batch through a kernel
+    """Phases 4b, 4d, 9c and 10d: one full-width B=16 batch through a kernel
     engine and through the same engine on the plain versions, on the card,
     in bf16 and float32. engine_kw picks the st-GNN path (ServingModel's
     gwnet_stack / gwnet_pallas / dcrnn_stack); gwnet, a GWNetConfig, the
-    Graph WaveNet's supports (phase 9c: its adjtype and addaptadj)."""
+    Graph WaveNet's supports and branch (phase 9c: its adjtype and
+    addaptadj; 10d: gcn_bool and kernel_size, the eval-mode module)."""
     from multimodal_outage_tpu_torch.core.config import (
         DEFAULT_NTL_MEAN,
         DEFAULT_NTL_STD,
@@ -533,7 +537,8 @@ def engine_vs_plain(torch, store_dir, st_gnn="gwnet", gwnet=None, **engine_kw):
     out = {k: e(x, feats) for k, e in engines.items()}
     torch.cuda.synchronize()
     label = " ".join([st_gnn] + [f"{k}={v}" for k, v in engine_kw.items()]
-                     + [f"adjtype={gw.adjtype} addaptadj={gw.addaptadj}"] * (gwnet is not None))
+                     + [f"adjtype={gw.adjtype} addaptadj={gw.addaptadj} gcn_bool={gw.gcn_bool} "
+                        f"kernel_size={gw.kernel_size}"] * (gwnet is not None))
     # the float32 plain engine on the same (bf16-rounded) frames is the
     # accuracy yardstick for the bf16 engines
     for dn, truth in (("bfloat16", out[("float32", True)]), ("float32", None)):
@@ -1208,6 +1213,151 @@ def graph_flags_end_to_end(torch, cli, dcm, dsm, gsm, weights, store_dir, workdi
                         for k, v in runs.items()}
 
 
+def nonfused_gwnet_end_to_end(torch, cli, dcm, gsm, glm, mp, weights, workdir, store_dir,
+                              train_store, gen):
+    """Phase 10: the non-fused Graph WaveNet at full width, each CLI run with
+    the launch counters set to 0 just before and read just after it.
+    (a) `train --gwnet_kernel_size 2 --svd_aptinit --adjtype
+    doubletransition --pool pallas --epochs 1 --batch_size 8` on phase 5's
+    store: pool launches (4·steps + 4·evals, 4·steps), step p50, peak
+    memory, and fit's initial node embeddings bitwise svd_aptinit of the
+    first support. (b) `evaluate --checkpoint_path` of it at B=8: (a)'s
+    test metrics exactly, 4 pool forwards per batch. (c) `serve
+    --checkpoint_path` at B=1 and 16 (the eval-mode module: 9 DoubleConv
+    launches per forward, no stack kernel) against `evaluate` at the same
+    batch size, within SERVE_RTOL. (d) the engine against the plain engine
+    for --no_gcn, --gwnet_kernel_size 2 and both, float32 and bf16 bars.
+    (e) a float32 reference_view_quirk Graph WaveNet at kernel_size 1 with
+    use_pallas (kernel 3 between the two reinterprets) against the plain
+    module."""
+    import dataclasses
+
+    import numpy as np
+
+    from multimodal_outage_tpu_torch.core.checkpoint import CheckpointManager
+    from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
+    from multimodal_outage_tpu_torch.data.adjacency import config_supports
+    from multimodal_outage_tpu_torch.data.store import load_store
+    from multimodal_outage_tpu_torch.models.gwnet import GraphWaveNet, svd_aptinit
+    from multimodal_outage_tpu_torch.train import loop
+
+    common = ["--case", "michael", "--dataset_range", str(TRAIN_MARGIN), "--data_dir",
+              train_store, "--gwnet_kernel_size", "2", "--adjtype", "doubletransition"]
+    argv = ["train", *common, "--pool", "pallas", "--svd_aptinit", "--epochs", "1",
+            "--batch_size", "8", "--seed", "0", "--job_id", "k2"]
+    cfg = cli._config(cli._parser().parse_args(argv))
+    store = load_store(train_store)
+    static = config_supports(cfg, store)
+    init = loop._initial_variables(cfg, store.n_counties, static)["params"]["st_gnn"]
+    svd = svd_aptinit(static[0], cfg.model.gwnet.node_embed_dim)
+    svd_ok = all(np.array_equal(init[k].numpy(), e) for k, e in zip(("nodevec1", "nodevec2"), svd))
+    cwd = os.getcwd()
+    os.chdir(workdir)  # the run directory is ./logs/<job_id>
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        mp.max_pool_forward.launches = mp.max_pool_backward.launches = 0
+        gsm.gwnet_stack_forward.launches = glm.gwnet_layer_forward.launches = 0
+        out = cli.run(argv)
+        torch.cuda.synchronize()
+        pool = (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+        others = (gsm.gwnet_stack_forward.launches, glm.gwnet_layer_forward.launches)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        os.chdir(cwd)
+    steps, evals = out["train_steps"], out["eval_forwards"]
+    want = (4 * steps + 4 * evals, 4 * steps)
+    ckpt = os.path.join(workdir, "logs", "k2", "checkpoints")
+    tree = CheckpointManager(ckpt).restore()
+    moved = {k: float((tree["params"]["st_gnn"][k] - init[k]).abs().max())
+             for k in ("nodevec1", "nodevec2")}
+    log(f"phase 10a: train {' '.join(argv[1:])}: {json.dumps(out)}")
+    log(f"phase 10a: {steps} train steps, {evals} eval forwards: pool launches (fwd, bwd) "
+        f"{pool}, expected {want}; (gwnet_stack, gwnet_layer) {others}; initial nodevecs == "
+        f"svd_aptinit(supports[0], 10) {svd_ok}, moved by max |Δ| {moved}; train step p50 "
+        f"{out['train_step_ms_p50']:.3f} ms (CUDA events, B=8 bf16, after the first step); "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    finals = [v for k, v in out.items() if k.startswith(("val_", "test_"))]
+    if steps < 2 or pool != want or others != (0, 0):
+        raise RuntimeError(f"phase 10a: launches {pool} {others}, expected {want} (0, 0)")
+    if not svd_ok or not all(v > 0 for v in moved.values()):
+        raise RuntimeError(f"phase 10a: svd_aptinit {svd_ok}, nodevecs moved {moved}")
+    if len(finals) != 8 or not all(math.isfinite(v) for v in finals):
+        raise RuntimeError(f"phase 10a: non-finite or missing final metrics {out}")
+
+    def evaluate(b):
+        mp.max_pool_forward.launches = mp.max_pool_backward.launches = 0
+        ev = cli.run(["evaluate", "--checkpoint_path", ckpt, "--batch_size", str(b), "--pool",
+                      "pallas", *common])
+        torch.cuda.synchronize()
+        pool = (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+        if pool != (4 * ev["forwards"], 0):
+            raise RuntimeError(f"phase 10b: evaluate B={b}: {ev['forwards']} forwards "
+                               f"launched pools {pool}")
+        return ev
+
+    ev = evaluate(8)
+    gap = max(abs(ev["metrics"][k] - out[f"test_{k}"]) / abs(out[f"test_{k}"]) for k in METRICS)
+    log(f"phase 10b: evaluate --checkpoint_path B=8 {json.dumps(ev)}; largest relative "
+        f"difference from 10a's test metrics {gap!r}")
+    if gap != 0.0:
+        raise RuntimeError(f"phase 10b: test metrics {ev['metrics']} differ from 10a's {out}")
+
+    serves = {}
+    for b in (1, 16):
+        ev_b = evaluate(b)
+        dcm.fused_double_conv.launches = gsm.gwnet_stack_forward.launches = 0
+        sv = cli.run(["serve", "--checkpoint_path", ckpt, "--batch_size", str(b),
+                      "--latency_stats", *common])
+        torch.cuda.synchronize()
+        grew, f = (dcm.fused_double_conv.launches, gsm.gwnet_stack_forward.launches), \
+            sv["forwards"]
+        gaps = {k: abs(sv["metrics"][k] - ev_b["metrics"][k]) / abs(ev_b["metrics"][k])
+                for k in ("loss", "mae", "rmse")}
+        log(f"phase 10c: serve --checkpoint_path B={b} {json.dumps(sv)} launches (double_conv, "
+            f"gwnet_stack) {grew}; relative gaps to evaluate at B={b} {json.dumps(gaps)}")
+        if grew != (9 * f, 0):
+            raise RuntimeError(f"phase 10c: {f} forwards launched {grew}, expected {(9 * f, 0)}")
+        if max(gaps.values()) > SERVE_RTOL:
+            raise RuntimeError(f"phase 10c: serve {sv['metrics']} vs evaluate {ev_b['metrics']}")
+        serves[b] = {**sv["latency"], "gap": max(gaps.values())}
+
+    failures = []
+    for gw in (GWNetConfig(gcn_bool=False), GWNetConfig(kernel_size=2),
+               GWNetConfig(gcn_bool=False, kernel_size=2)):
+        failures += engine_vs_plain(torch, store_dir, gwnet=gw)
+
+    # (e) the quirk on the fused path: kernel 3 between the reinterprets
+    qcfg = ModelConfig(compute_dtype="float32",
+                       gwnet=GWNetConfig(reference_view_quirk=True, use_pallas=True))
+    n = store.n_counties
+    st = weights.init_variables(qcfg, 7, n, seed=4)
+    st = {k: st[k]["st_gnn"] for k in ("params", "batch_stats")}
+    plain_cfg = dataclasses.replace(qcfg, gwnet=dataclasses.replace(qcfg.gwnet, use_pallas=False))
+    mods = [weights.load_variables(GraphWaveNet(c, n, 1), st).cuda().eval()
+            for c in (qcfg, plain_cfg)]
+    z = torch.randn(8, n, 7, qcfg.st_gnn_in_dim, generator=gen, device="cuda")
+    sup = torch.eye(n, device="cuda")[None]
+    glm.gwnet_layer_forward.launches = 0
+    with torch.no_grad():
+        got = mods[0](z, sup, False)
+        layer = glm.gwnet_layer_forward.launches
+        want = mods[1](z, sup, False)
+    torch.cuda.synchronize()
+    err, ok, _ = compare(got, want)
+    log(f"phase 10e: reference_view_quirk float32 B=8, kernel 3 between the reinterprets vs "
+        f"the plain module: max abs err {err}, gwnet_layer launches {layer}, ok {ok}")
+    if not ok or layer != 8:
+        failures.append(f"quirk: max err {err}, {layer} launches")
+    if failures:
+        raise RuntimeError("phase 10: an engine disagrees with its plain version:\n"
+                           + "\n".join(failures))
+    for b, lat in serves.items():
+        log(f"phase 10c: serve k=2 B={b} p50 {lat['p50_ms']:.3f} ms p90 {lat['p90_ms']:.3f} ms")
+    return {"train_step_ms_p50": out["train_step_ms_p50"], "peak_gib": peak / 2**30,
+            "pool_launches": pool, "evaluate_gap": gap, "quirk_err": err,
+            **{f"serve_B{b}_{k}": v for b, lat in serves.items() for k, v in lat.items()}}
+
+
 def by_supports(rows, b):
     """Phase 9c's S = 1 and S = 3 rows of a kernel for the kernels line:
     each S's largest error over both dtypes and its bf16 time at batch b
@@ -1307,6 +1457,9 @@ def main() -> int:
         st9_rows, p9c = graph_flags_end_to_end(torch, cli, dcm, dsm, gsm, weights, store_dir,
                                                workdir, dcrnn_runs[1], gen)
         log(f"phase 9: {json.dumps({**p9a, **p9b, **p9c})}")
+        p10 = nonfused_gwnet_end_to_end(torch, cli, dcm, gsm, glm, mp, weights, workdir,
+                                        store_dir, train_store, gen)
+        log(f"phase 10: {json.dumps(p10)}")
 
     main_dc = [r for r in dc_rows if r["dtype"] == "bfloat16"]
     main_st = [r for r in st_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]

@@ -151,8 +151,17 @@ def _graph_flags(p: argparse.ArgumentParser) -> None:
                    choices=("identity", "transition", "doubletransition"),
                    help="Graph WaveNet's static supports (default identity, the "
                    "reference's degenerate doubletransition)")
+    p.add_argument("--no_gcn", action="store_true",
+                   help="no graph convolution in Graph WaveNet: residual 1×1s in place of "
+                   "the diffusion GCNs (reference gcn_bool=False)")
     p.add_argument("--no_addaptadj", action="store_true",
                    help="no learned adaptive adjacency in Graph WaveNet")
+    p.add_argument("--svd_aptinit", action="store_true",
+                   help="train: start the node embeddings from the SVD of the first static "
+                   "support (reference randomadj=False)")
+    p.add_argument("--gwnet_kernel_size", type=int, default=None,
+                   help="Graph WaveNet's temporal kernel (default 1; >1 is the dilated "
+                   "gated TCN, receptive field 13 at 2)")
 
 
 def _model_flags(p: argparse.ArgumentParser) -> None:
@@ -193,8 +202,14 @@ def _config(args: argparse.Namespace):
     gwnet = {}
     if getattr(args, "adjtype", None):
         gwnet["adjtype"] = args.adjtype
+    if getattr(args, "no_gcn", False):
+        gwnet["gcn_bool"] = False
     if getattr(args, "no_addaptadj", False):
         gwnet["addaptadj"] = False
+    if getattr(args, "svd_aptinit", False):
+        gwnet["randomadj"] = False
+    if getattr(args, "gwnet_kernel_size", None):
+        gwnet["kernel_size"] = args.gwnet_kernel_size
     return Config(
         data=DataConfig(
             data_dir=args.data_dir, horizon=args.horizon, dataset_range=args.dataset_range,

@@ -11,10 +11,13 @@ prepares the st-GNN's weights and supports, once. The forward:
   bottleneck encoder  2 Dense + ReLU, float32
   Date2Vec            float32 (models/date2vec.py)
   st-GNN              Graph WaveNet: one kernel for the whole stack
-                      (ops/gwnet_stack.py, BN folded), or with
-                      gwnet_stack=False the trainable module in eval mode
-                      (models/gwnet.py, BN not folded), whose layers are
-                      the per-layer kernel with gwnet_pallas
+                      (ops/gwnet_stack.py, BN folded) where it applies
+                      (gwnet_path), else the trainable module in eval
+                      mode (models/gwnet.py, BN not folded): every
+                      non-fused config (kernel_size > 1, no gcn_bool, no
+                      support at all), reference_view_quirk, and
+                      gwnet_stack=False, whose fused layers are the
+                      per-layer kernel with gwnet_pallas
                       (ops/gwnet_layer.py);
                       DCRNN: one kernel for the whole seq2seq
                       (ops/dcrnn_stack.py), or with dcrnn_stack=False the
@@ -63,6 +66,32 @@ from multimodal_outage_tpu_torch.ops.gwnet_stack import (
 from multimodal_outage_tpu_torch.weights import conv_transpose_weight, load_variables
 
 
+def gwnet_path(g, has_supports: bool, gwnet_stack: Optional[bool],
+               gwnet_pallas: bool) -> bool:
+    """Whether a Graph WaveNet engine runs the stack kernel (kernel 2) or
+    the eval-mode module. Kernel 2 computes the fused path only
+    (kernel_size 1, gcn_bool, a static or adaptive support) without
+    reference_view_quirk; gwnet_stack=None takes it exactly where it
+    applies and gwnet_pallas is not asked for (the JAX engine's auto rule,
+    its serving.py:226-235, without the TPU test). A kernel asked for runs
+    or raises: an explicit gwnet_stack=True that cannot apply, and
+    gwnet_pallas=True on a config with no fused layer (or beside
+    gwnet_stack=True), raise ValueError rather than switch paths."""
+    fused = g.kernel_size == 1 and g.gcn_bool and (has_supports or g.addaptadj)
+    what = (f"kernel_size={g.kernel_size}, gcn_bool={g.gcn_bool}, supports "
+            f"{'given' if has_supports else 'none'}, addaptadj={g.addaptadj}, "
+            f"reference_view_quirk={g.reference_view_quirk}")
+    if gwnet_pallas and not fused:
+        raise ValueError(f"gwnet_pallas=True: the per-layer kernel runs the fused Graph "
+                         f"WaveNet layer, which this config has not ({what})")
+    if gwnet_stack is None:
+        return fused and not g.reference_view_quirk and not gwnet_pallas
+    if gwnet_stack and (not fused or g.reference_view_quirk or gwnet_pallas):
+        raise ValueError(f"gwnet_stack=True: the stack kernel computes the fused path "
+                         f"without reference_view_quirk or gwnet_pallas ({what})")
+    return gwnet_stack
+
+
 class ServingModel:
     """Eval forward built once from a variables tree (weights.py).
 
@@ -80,25 +109,16 @@ class ServingModel:
         horizon: int = 7,
         device: Optional[str] = "cuda",
         reference: bool = False,
-        gwnet_stack: bool = True,
+        gwnet_stack: Optional[bool] = None,
         gwnet_pallas: bool = False,
         dcrnn_stack: bool = True,
     ):
-        g = cfg.gwnet
         if cfg.st_gnn not in ("gwnet", "dcrnn"):
             raise NotImplementedError(
                 f"ServingModel serves st_gnn in ('gwnet', 'dcrnn') (got {cfg.st_gnn!r})"
             )
-        if cfg.st_gnn == "gwnet" and (
-            g.kernel_size != 1 or not g.gcn_bool or g.reference_view_quirk
-            or (supports is None and not g.addaptadj)
-        ):
-            raise NotImplementedError(
-                "the port serves the fused Graph WaveNet path only "
-                "(kernel_size=1, gcn_bool, diffusion supports, static or "
-                "adaptive, no reference_view_quirk); the others come with "
-                "the ROADMAP item 'non-fused Graph WaveNet branches'"
-            )
+        if cfg.st_gnn == "gwnet":
+            gwnet_stack = gwnet_path(cfg.gwnet, supports is not None, gwnet_stack, gwnet_pallas)
         if cfg.st_gnn == "dcrnn" and supports is None:
             raise ValueError(
                 "dcrnn_stack=True requires a supports array: the fused DCGRU "
@@ -106,6 +126,7 @@ class ServingModel:
                 if dcrnn_stack else "DCRNN requires a supports array [S, N, N]; got None"
             )
         self.cfg = cfg
+        self.gwnet_stack = cfg.st_gnn == "gwnet" and gwnet_stack
         self.horizon = horizon
         self.device = dev = resolve_device(device)
         self.dtype = dtype = getattr(torch, cfg.compute_dtype)
@@ -176,8 +197,7 @@ class ServingModel:
         """The trainable Graph WaveNet in eval mode (running BN statistics,
         not folded), its layers the per-layer kernel with gwnet_pallas."""
         g = dataclasses.replace(self.cfg.gwnet, use_pallas=gwnet_pallas and not self.reference)
-        n_nodes = (sup.shape[-1] if sup is not None
-                   else torch.as_tensor(st["nodevec1"]).shape[0])
+        n_nodes = torch.as_tensor(st["nodevec1"]).shape[0] if "nodevec1" in st else 0
         module = GraphWaveNet(dataclasses.replace(self.cfg, gwnet=g), n_nodes,
                               0 if sup is None else sup.shape[0], self.dtype)
         load_variables(module, {"params": st, "batch_stats": st_bs})

@@ -11,8 +11,13 @@ fit also runs the JAX loop's run options: resume from the latest
 checkpoint, a pretrained Date2Vec bundle installed at init, TensorBoard
 scalars, a torch.profiler trace of a few steps, and NaN debugging.
 
+With GWNetConfig.randomadj False (`--svd_aptinit`) fit starts the node
+embeddings from the SVD of the first static support (models/gwnet.py
+install_aptinit), as the JAX loop does; predict and serve read them from
+the checkpoint.
+
 Not here yet (each raises when asked for): grad accumulation, remat,
-mesh/SPMD with sample_weight, svd_aptinit, batch transform hooks.
+mesh/SPMD with sample_weight, batch transform hooks.
 Batches come from the device pipeline (data/pipeline.py); the host
 prefetch path is not ported.
 """
@@ -45,6 +50,7 @@ from multimodal_outage_tpu_torch.data.dataset import (
 from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline
 from multimodal_outage_tpu_torch.data.store import load_store
 from multimodal_outage_tpu_torch.models.fusion import build_model
+from multimodal_outage_tpu_torch.models.gwnet import install_aptinit
 from multimodal_outage_tpu_torch.train.date2vec_pretrain import install_bundle, load_bundle
 from multimodal_outage_tpu_torch.train.state import (
     TrainState,
@@ -65,10 +71,6 @@ def check_supported(cfg: Config) -> None:
         "a device mesh": (
             mesh.model != 1 or mesh.time != 1 or mesh.data not in (-1, 1),
             "SPMD with sample_weight",
-        ),
-        "svd_aptinit (randomadj=False)": (
-            cfg.model.st_gnn == "gwnet" and not cfg.model.gwnet.randomadj,
-            "non-fused Graph WaveNet branches",
         ),
     }
     for what, (asked, item) in todo.items():
@@ -129,12 +131,17 @@ def _ckpt_tree(state: TrainState, epoch: int, best_val: float, best_epoch: int, 
     }
 
 
-def _initial_variables(cfg: Config, n_counties: int):
+def _initial_variables(cfg: Config, n_counties: int, supports: np.ndarray):
     """init_variables from cfg.train.seed, with the Date2Vec bundle's
     fc1/fc2 installed when cfg.model.d2v_bundle names one (JAX
-    train/state.py:53-59)."""
+    train/state.py:53-59) and, for Graph WaveNet with randomadj False, the
+    node embeddings from the SVD of supports[0] (JAX train/loop.py:478-489)."""
     variables = init_variables(cfg.model, cfg.data.horizon, n_counties, cfg.train.seed,
                                cfg.data.image_size)
+    g = cfg.model.gwnet
+    if cfg.model.st_gnn == "gwnet" and not g.randomadj:
+        variables["params"] = install_aptinit(variables["params"], supports[0],
+                                              g.node_embed_dim)
     if cfg.model.d2v_bundle:
         variables["params"] = install_bundle(variables["params"],
                                              load_bundle(cfg.model.d2v_bundle))
@@ -216,10 +223,11 @@ def fit(
     if progress:
         print(f"Size of train_set: {len(train_idx)}, val_set: {len(val_idx)}, "
               f"and test_set: {len(test_ds)}")
-    supports = torch.from_numpy(config_supports(cfg, store)).to(dev)
+    static = config_supports(cfg, store)
+    supports = torch.from_numpy(static).to(dev)
     horizon, size = cfg.data.horizon, cfg.data.image_size
     model = build_model(cfg.model, horizon, store.n_counties, size)
-    load_variables(model, _initial_variables(cfg, store.n_counties))
+    load_variables(model, _initial_variables(cfg, store.n_counties, static))
     model.to(dev)
     state = create_train_state(model)
     if progress:

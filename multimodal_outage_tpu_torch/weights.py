@@ -149,6 +149,47 @@ def _dcrnn_params(cfg: ModelConfig, n_supports: int, dense) -> Tree:
             "decoder": {**cells(fvs), "proj": dense(u, fvs)}}
 
 
+def _gwnet_params(cfg: ModelConfig, n_nodes: int, n_static: int, rng, dense, bn):
+    """The Graph WaveNet (params, batch_stats) trees (JAX models/gwnet.py):
+    flat filter_conv{i}_kernel, … on the fused path (kernel_size 1 and a
+    support); on the others nested filter_conv{i}/gate_conv{i} convs
+    (kernel [k, C, Cd]), skip_conv{i}, and gconv{i}/mlp over the supports
+    or residual_conv{i} without any. Without gcn_bool the static supports
+    are dropped and there are no node embeddings."""
+    g = cfg.gwnet
+    c, cd, cs, ce = g.residual_channels, g.dilation_channels, g.skip_channels, g.end_channels
+    adaptive = g.addaptadj and g.gcn_bool
+    n_sup = (n_static if g.gcn_bool else 0) + int(adaptive)
+    nt = n_sup * g.order + 1
+    k = g.kernel_size
+    st: Tree = {"start_conv": dense(cfg.st_gnn_in_dim, c)}
+    st_stats: Tree = {}
+    if adaptive:
+        st["nodevec1"] = rng.standard_normal((n_nodes, g.node_embed_dim)).astype(np.float32)
+        st["nodevec2"] = rng.standard_normal((g.node_embed_dim, n_nodes)).astype(np.float32)
+    for i in range(g.blocks * g.layers):
+        if k == 1 and n_sup:
+            for name, (cin_, cout_) in (
+                ("filter_conv", (c, cd)), ("gate_conv", (c, cd)),
+                ("skip_conv", (cd, cs)), ("gconv", (nt * cd, c)),
+            ):
+                d = dense(cin_, cout_)
+                st[f"{name}{i}_kernel"], st[f"{name}{i}_bias"] = d["kernel"], d["bias"]
+        else:
+            for name in ("filter_conv", "gate_conv"):
+                st[f"{name}{i}"] = {"kernel": _lecun(rng, (k, c, cd), k * c),
+                                    "bias": np.zeros(cd, np.float32)}
+            st[f"skip_conv{i}"] = dense(cd, cs)
+            if n_sup:
+                st[f"gconv{i}"] = {"mlp": dense(nt * cd, c)}
+            else:
+                st[f"residual_conv{i}"] = dense(cd, c)
+        st[f"bn{i}"], st_stats[f"bn{i}"] = bn(c)
+    st["end_conv_1"] = dense(cs, ce)
+    st["end_conv_2"] = dense(ce, cfg.feature_vector_size)
+    return st, st_stats
+
+
 def init_date2vec(k: int, seed: int) -> Tree:
     """Random params of models/date2vec.py Date2VecAutoencoder (fc1..fc5)
     as float32 numpy arrays, drawn with numpy from `seed` after flax's
@@ -191,18 +232,12 @@ def init_variables(
     tensors, made with numpy from `seed`. Distributions follow flax's
     initializers (lecun_normal kernels, zero biases, unit BN scales, N(0, 1)
     node embeddings, DCRNN gate biases 1.0); the values are not flax's.
-    horizon changes no shape of either st-GNN."""
+    horizon changes no shape of either st-GNN. Every GWNetConfig branch
+    is covered (_gwnet_params); the node embeddings are random, also where
+    fit installs svd_aptinit's after."""
     del horizon
-    g = cfg.gwnet
-    if cfg.st_gnn not in ("gwnet", "dcrnn") or cfg.st_gnn == "gwnet" and (
-        g.kernel_size != 1 or not g.gcn_bool or g.reference_view_quirk
-    ):
-        raise NotImplementedError(
-            "init_variables covers the DCRNN tree and the Graph WaveNet "
-            "fused-path tree (kernel_size=1, gcn_bool, no "
-            "reference_view_quirk); the others come with the ROADMAP item "
-            "'non-fused Graph WaveNet branches'"
-        )
+    if cfg.st_gnn not in ("gwnet", "dcrnn"):
+        raise ValueError(f"unknown st_gnn {cfg.st_gnn!r}; pick 'gwnet' or 'dcrnn'")
     rng = np.random.default_rng(seed)
     params: Tree = {}
     stats: Tree = {}
@@ -255,24 +290,7 @@ def init_variables(
         # no BatchNorm, so no batch_stats entry
         params["st_gnn"] = _dcrnn_params(cfg, n_static, dense)
     else:
-        c, cd, cs, ce = g.residual_channels, g.dilation_channels, g.skip_channels, g.end_channels
-        nt = (n_static + int(g.addaptadj)) * g.order + 1
-        st: Tree = {"start_conv": dense(cfg.st_gnn_in_dim, c)}
-        st_stats: Tree = {}
-        if g.addaptadj:
-            st["nodevec1"] = rng.standard_normal((n_counties, g.node_embed_dim)).astype(np.float32)
-            st["nodevec2"] = rng.standard_normal((g.node_embed_dim, n_counties)).astype(np.float32)
-        for i in range(g.blocks * g.layers):
-            for name, (cin_, cout_) in (
-                ("filter_conv", (c, cd)), ("gate_conv", (c, cd)),
-                ("skip_conv", (cd, cs)), ("gconv", (nt * cd, c)),
-            ):
-                d = dense(cin_, cout_)
-                st[f"{name}{i}_kernel"], st[f"{name}{i}_bias"] = d["kernel"], d["bias"]
-            st[f"bn{i}"], st_stats[f"bn{i}"] = bn(c)
-        st["end_conv_1"] = dense(cs, ce)
-        st["end_conv_2"] = dense(ce, fvs)
-        params["st_gnn"], stats["st_gnn"] = st, st_stats
+        params["st_gnn"], stats["st_gnn"] = _gwnet_params(cfg, n_counties, n_static, rng, dense, bn)
 
     params["decoder"] = {
         "fc1": dense(fvs, fvs * cfg.compression_factor),

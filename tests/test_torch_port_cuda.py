@@ -571,6 +571,34 @@ def test_st_gnn_engines_match_plain_engine(cuda, dtype, engine):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gw", [GWNetConfig(kernel_size=2), GWNetConfig(gcn_bool=False)],
+                         ids=["kernel_size_2", "no_gcn"])
+def test_nonfused_gwnet_engines_match_plain_engine(cuda, dtype, gw):
+    """A kernel_size=2 and a gcn_bool=False Graph WaveNet served at N = 67
+    (the eval-mode module: 9 DoubleConv launches per forward, neither
+    Graph WaveNet kernel) against the same engine on the plain versions."""
+    cfg = ModelConfig(compute_dtype=dtype, gwnet=gw)
+    n, t, h = 67, 7, 32
+    var = weights.init_variables(cfg, t, n, seed=0, image_size=h)
+    sup = torch.from_numpy(model_supports(cfg, n))
+    x = torch.from_numpy(
+        np.random.default_rng(1).standard_normal((2, n, t, h, h, 1)).astype(np.float32)).to(cuda)
+    feats = torch.tensor([0, 0, 0, 2022, 9, 26], dtype=torch.float32).repeat(2, t, 1).to(cuda)
+    counters = (dcm.fused_double_conv, glm.gwnet_layer_forward, gsm.gwnet_stack_forward)
+    before = [c.launches for c in counters]
+    engine = ServingModel(cfg, var, sup, horizon=t, device="cuda")
+    got = engine(x, feats)
+    torch.cuda.synchronize()
+    assert not engine.gwnet_stack
+    assert tuple(c.launches - b for c, b in zip(counters, before)) == (9, 0, 0)
+    want = ServingModel(cfg, var, sup, horizon=t, device="cuda", reference=True)(x, feats)
+    f32 = ModelConfig(compute_dtype="float32", gwnet=gw)
+    truth = ServingModel(f32, var, sup, horizon=t, device="cuda", reference=True)(x, feats)
+    _assert_kernel_matches(got, want, want if dtype == "float32" else truth)
+
+
+@pytest.mark.cuda
 def test_layer_and_dcrnn_wrappers_reject_bad_inputs(cuda):
     args = _layer_args(2, 7, 3, 8, 8, 16, 2, 2, torch.float32, cuda)
     with pytest.raises(ValueError):  # non-contiguous x

@@ -131,8 +131,44 @@ def test_bf16_engine_runs_on_cpu():
     ],
 )
 def test_unported_configs_raise(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingModel(cfg, {"params": {}, "batch_stats": {}}, None, device="cpu")
+    """The configs the engine refused before the non-fused Graph WaveNet
+    branches were ported: each now builds an engine on the eval-mode
+    module (the stack kernel does not apply to them) and gives a finite
+    forecast. With addaptadj=False and no supports the layers are the
+    residual 1×1s, the tree gcn_bool=False has."""
+    no_support = not cfg.gwnet.addaptadj
+    tree_cfg = ModelConfig(gwnet=GWNetConfig(gcn_bool=False)) if no_support else cfg
+    var = weights.init_variables(tree_cfg, T, N, seed=0, image_size=H)
+    sup = None if no_support else torch.eye(N)[None]
+    serve = ServingModel(cfg, var, sup, horizon=T, device="cpu")
+    assert not serve.gwnet_stack
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((1, N, T, H, H, 1)).astype(np.float32))
+    y = serve(x, torch.zeros(1, T, 6))
+    assert tuple(y.shape) == (1, N, T, H, H, 1) and torch.isfinite(y).all()
+
+
+@pytest.mark.parametrize("gw,sup,kw", [
+    (GWNetConfig(kernel_size=2), True, dict(gwnet_stack=True)),
+    (GWNetConfig(gcn_bool=False), True, dict(gwnet_stack=True)),
+    (GWNetConfig(addaptadj=False), False, dict(gwnet_stack=True)),
+    (GWNetConfig(reference_view_quirk=True), True, dict(gwnet_stack=True)),
+    (GWNetConfig(kernel_size=2), True, dict(gwnet_stack=False, gwnet_pallas=True)),
+    (GWNetConfig(gcn_bool=False), True, dict(gwnet_pallas=True)),
+    (GWNetConfig(), True, dict(gwnet_stack=True, gwnet_pallas=True)),
+], ids=["stack_k2", "stack_nogcn", "stack_nosupport", "stack_quirk", "pallas_k2",
+        "pallas_nogcn", "stack_and_pallas"])
+def test_explicit_kernel_that_cannot_apply_raises(gw, sup, kw):
+    """An explicit gwnet_stack=True or gwnet_pallas=True that its config
+    cannot take raises ValueError; the engine never switches paths
+    quietly. reference_view_quirk at kernel_size 1 takes the per-layer
+    kernel (between the two reinterprets)."""
+    with pytest.raises(ValueError, match="gwnet_stack=True|gwnet_pallas=True"):
+        ServingModel(ModelConfig(gwnet=gw), {"params": {}, "batch_stats": {}},
+                     torch.eye(N)[None] if sup else None, device="cpu", **kw)
+    cfg = ModelConfig(gwnet=GWNetConfig(reference_view_quirk=True))
+    var = weights.init_variables(cfg, T, N, seed=0, image_size=H)
+    serve = ServingModel(cfg, var, torch.eye(N)[None], horizon=T, device="cpu", gwnet_pallas=True)
+    assert not serve.gwnet_stack
 
 
 def test_no_silent_cpu_fallback():

@@ -109,7 +109,21 @@ def test_conv_transpose_flip_matches_jax():
 
 
 def test_init_variables_rejects_unported_configs():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        weights.init_variables(ModelConfig(gwnet=GWNetConfig(gcn_bool=False)), 2, 4, seed=0)
-    with pytest.raises(NotImplementedError):
-        weights.init_variables(ModelConfig(gwnet=GWNetConfig(kernel_size=2)), 2, 4, seed=0)
+    """gcn_bool=False and kernel_size=2, which init_variables refused before
+    the non-fused Graph WaveNet branches were ported, now give the trees
+    build_model's modules load (residual_conv{i}, no node embeddings;
+    filter_conv{i}/kernel [2, C, Cd]) and a finite forward. The JAX
+    package's trees: tests/test_torch_port_gwnet_branches.py."""
+    from multimodal_outage_tpu_torch.models.fusion import build_model as port_build_model
+
+    for gw in (GWNetConfig(gcn_bool=False), GWNetConfig(kernel_size=2)):
+        cfg = ModelConfig(compute_dtype="float32", gwnet=gw)
+        var = weights.init_variables(cfg, 2, 4, seed=0, image_size=16)
+        st = var["params"]["st_gnn"]
+        assert ("residual_conv0" in st) == (not gw.gcn_bool)
+        assert ("nodevec1" in st) == gw.gcn_bool
+        assert tuple(st["filter_conv0"]["kernel"].shape) == (gw.kernel_size, 32, 32)
+        model = weights.load_variables(port_build_model(cfg, 2, 4, 16), var)
+        with torch.no_grad():
+            y = model(torch.ones(1, 4, 2, 16, 16, 1), torch.zeros(1, 2, 6), torch.eye(4)[None])
+        assert torch.isfinite(y).all()

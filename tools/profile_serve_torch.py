@@ -5,7 +5,11 @@ weights from a seed), at each requested batch size, with Graph WaveNet
 or DCRNN as the st-GNN.
 
     python3 tools/profile_serve_torch.py [--st_gnn gwnet|dcrnn] [--batch 1 16]
-        [--repeats 5] [--out FILE]
+        [--repeats 5] [--out FILE] [--gwnet_kernel_size K] [--no_gcn]
+
+--gwnet_kernel_size > 1 or --no_gcn profile a non-fused Graph WaveNet,
+which the engine serves through its eval-mode module (models/gwnet.py),
+not the stack kernel.
 
 Prints per batch size the forward's wall time (CUDA events, after a
 warm-up), then torch.profiler's device time per kernel name summed over
@@ -32,6 +36,8 @@ LAYERS = (
     ("max_pool", "max-pool"),
     ("conv_transpose", "ConvTranspose (cuDNN)"),
     ("dgrad", "ConvTranspose (cuDNN)"),
+    ("fprop", "temporal conv1d (cuDNN)"),
+    ("convolve", "temporal conv1d (cuDNN)"),
     ("gemm", "Dense / 1x1 head (cuBLAS)"),
     ("gemv", "Dense / 1x1 head (cuBLAS)"),
     ("cutlass", "Dense / 1x1 head (cuBLAS)"),
@@ -56,7 +62,7 @@ def main() -> int:
         print("profile_serve_torch: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from multimodal_outage_tpu_torch.core.config import ModelConfig
+    from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
     from multimodal_outage_tpu_torch.data.adjacency import model_supports
     from multimodal_outage_tpu_torch.serving import ServingModel
     from multimodal_outage_tpu_torch.weights import init_variables
@@ -66,9 +72,12 @@ def main() -> int:
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 16])
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--out", type=str, default=None, help="also write the report as JSON here")
+    ap.add_argument("--gwnet_kernel_size", type=int, default=1)
+    ap.add_argument("--no_gcn", action="store_true")
     args = ap.parse_args()
 
-    cfg = ModelConfig(st_gnn=args.st_gnn)
+    cfg = ModelConfig(st_gnn=args.st_gnn, gwnet=GWNetConfig(kernel_size=args.gwnet_kernel_size,
+                                                            gcn_bool=not args.no_gcn))
     serve = ServingModel(cfg, init_variables(cfg, 7, 67, seed=0), model_supports(cfg, 67))
     gen = torch.Generator(device="cuda").manual_seed(0)
     card = subprocess.run(
@@ -76,7 +85,9 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    report = {"device": torch.cuda.get_device_name(0), "card": card, "st_gnn": args.st_gnn}
+    report = {"device": torch.cuda.get_device_name(0), "card": card, "st_gnn": args.st_gnn,
+              "gwnet_kernel_size": args.gwnet_kernel_size, "gcn_bool": not args.no_gcn,
+              "gwnet_stack": serve.gwnet_stack}
     for b in args.batch:
         x = torch.randn(b, 67, 7, 128, 128, 1, generator=gen, device="cuda").to(torch.bfloat16)
         feats = torch.tensor([0, 0, 0, 2018, 10, 1], dtype=torch.float32,

@@ -16,8 +16,12 @@ supports), `--no_addaptadj` (1) and `--adjacency`, with kernels 2 and 3
 held to their plain versions at those supports), trains, evaluates and
 serves the non-fused Graph WaveNet (phase 10: `--gwnet_kernel_size 2
 --svd_aptinit`, engines for `--no_gcn` and kernel_size 2 against plain,
-and reference_view_quirk through kernel 3), and checks that each path
-went through its kernels.
+and reference_view_quirk through kernel 3), trains with gradient
+accumulation and remat (phase 11: `train --grad_accum 2` at B=16, `train
+--grad_accum auto` at B=32, which must run out of memory one-shot and
+fall back to 2 microbatches, each remat scope at B=16, and float32
+accumulating and remat steps against the plain steps), and checks that
+each path went through its kernels.
 
     python3 chip_smoke.py
 
@@ -98,6 +102,34 @@ DCRNN_STEP_RTOL = 1e-4
 # run straight through, with deterministic cuDNN and no TF32: the same
 # steps on the same restored tensors, so any gap is a resume fault
 RESUME_RTOL = 1e-6
+# phase 11b: one float32 B=8 step as 2 microbatches of 4 against the
+# one-shot step, deterministic cuDNN, no TF32, dropout off. The two differ
+# only in summation order: each weight gradient is one reduction over
+# 8·67·7 images against two over 4·67·7 added, and the serial BatchNorm
+# EMA is applied in two parts. The loss (relative) and each BN
+# running-stat buffer (over its largest entry; the EMA's rounding scales
+# with the buffer) are held within ACCUM_RTOL of the one-shot step's. The
+# gradients are not held to each other: a 128² level's weight gradient
+# reduces ~6e7 products in float32, and cuDNN's algorithms for a batch of
+# 8 and for one of 4 round it differently (measured on an H100: the
+# one-shot step with cuDNN against the same step with cuDNN off, up to
+# 2.9e-3 of a leaf's largest entry). So against the same one-shot step
+# with cuDNN off (native convolutions, float32 GEMMs), the accumulating
+# step may be at most ACCUM_RATIO times as far off as the one-shot step,
+# plus the CPU test's bars as a floor (tests/test_torch_port_accum_remat.py:
+# each gradient leaf within ACCUM_GRAD_RTOL of its largest entry, or of
+# 1e-3 of the largest gradient of all for leaves whose true gradient is 0;
+# parameters within 1e-6 where the gradient is above that bar, since
+# Adam's first update is lr·g/(|g|+ε) and an entry whose gradient is
+# summation noise moves by ±lr with its sign).
+ACCUM_RATIO = 2.0
+ACCUM_RTOL, ACCUM_GRAD_RTOL = 1e-5, 1e-4
+# phase 11d: a remat step recomputes the same arithmetic on the same
+# inputs (deterministic cuDNN picks the same algorithm for the same
+# shape), so a float32 B=2 step per scope is held to the plain step at
+# REMAT_RTOL, a few float32 ulps; any larger gap is a remat fault
+REMAT_RTOL = 1e-6
+LR = 1e-3
 
 
 def log(*a):
@@ -650,8 +682,8 @@ def train_end_to_end(torch, cli, mp, workdir):
     return store_dir, out, launches, peak
 
 
-def train_batch(torch, store_dir):
-    """(store, first 8 train windows of phase 5's store on the card)."""
+def train_batch(torch, store_dir, n=8):
+    """(store, first n train windows of phase 5's store on the card)."""
     from multimodal_outage_tpu_torch.core.config import DEFAULT_NTL_MEAN, DEFAULT_NTL_STD
     from multimodal_outage_tpu_torch.core.registry import HURRICANES
     from multimodal_outage_tpu_torch.data.dataset import WindowDataset
@@ -663,7 +695,7 @@ def train_batch(torch, store_dir):
     ds = WindowDataset.from_case_study(store, cases, TRAIN_MARGIN, 7)
     pipe = DevicePipeline(store, DEFAULT_NTL_MEAN, DEFAULT_NTL_STD, 128,
                           torch.bfloat16, torch.device("cuda"))
-    return store, pipe.batch(ds, list(range(8)))
+    return store, pipe.batch(ds, list(range(n)))
 
 
 def step_vs_plain(torch, store_dir, label="5b", rtol=STEP_RTOL, **model_kw):
@@ -1358,6 +1390,293 @@ def nonfused_gwnet_end_to_end(torch, cli, dcm, gsm, glm, mp, weights, workdir, s
             **{f"serve_B{b}_{k}": v for b, lat in serves.items() for k, v in lat.items()}}
 
 
+def _step_state(torch, model, loss):
+    """(loss, gradients, parameters, buffers) of a model after a step, on
+    the host in float32."""
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).float().cpu()
+             for k, p in model.named_parameters()}
+    params = {k: p.detach().float().cpu() for k, p in model.named_parameters()}
+    stats = {k: b.float().cpu() for k, b in model.named_buffers()}
+    return float(loss), grads, params, stats
+
+
+def _step_gaps(a, b, grad_rtol):
+    """Gaps of step a to the reference step b (each _step_state): relative
+    loss; the largest gradient gap over each leaf's largest entry (floor
+    1e-3 of the largest gradient of all); the largest BN running-stat gap
+    over its buffer's largest entry; the largest parameter gap where b's gradient is above grad_rtol
+    of that scale ("params"), and anywhere ("params_any")."""
+    (la, ga, pa, sa), (lb, gb, pb, sb) = a, b
+    g_all = max(float(v.abs().max()) for v in gb.values())
+    gaps = {"loss": abs(la - lb) / abs(lb), "grad": 0.0, "bn_stats": 0.0, "params": 0.0,
+            "params_any": 0.0}
+    for k in gb:
+        scale = max(float(gb[k].abs().max()), 1e-3 * g_all)
+        gaps["grad"] = max(gaps["grad"], float((ga[k] - gb[k]).abs().max()) / scale)
+        d = (pa[k] - pb[k]).abs()
+        signal = gb[k].abs() > grad_rtol * scale
+        if signal.any():
+            gaps["params"] = max(gaps["params"], float(d[signal].max()))
+        gaps["params_any"] = max(gaps["params_any"], float(d.max()))
+    for k in sb:
+        gaps["bn_stats"] = max(gaps["bn_stats"], _rel_gap(sa[k], sb[k]))
+    return gaps
+
+
+def _gaps_ok(gaps, rtol):
+    return (gaps["loss"] <= rtol and gaps["bn_stats"] <= rtol and gaps["grad"] <= rtol
+            and gaps["params"] <= 1e-6 and gaps["params_any"] <= 2 * LR + 1e-6)
+
+
+def accum_remat_end_to_end(torch, cli, mp, workdir, train_store):
+    """Phase 11: gradient accumulation and remat at full width (bf16,
+    --pool pallas, phase 5's store), the launch counters set to 0 just
+    before each run and read just after. (a) `train --batch_size 16
+    --grad_accum 2 --epochs 2`: pool launches 4 per microbatch forward and
+    backward plus 4 per eval batch; step p50 and peak. (b) one float32 B=8
+    step of make_accum_train_step(model, 2) against the one-shot step,
+    and both against the one-shot step with cuDNN off.
+    (d) one fixed B=16 batch through make_train_step for each remat scope
+    (none, stem, all, conv), 1 warm-up and 5 timed steps: step p50, peak
+    memory, pool launches per step (forward 4 / 5 / 8 / 8, backward 4),
+    peaks all < stem < none and conv < none; then a float32 B=2 step per
+    scope against none. (e) `train --remat --remat_scope stem --batch_size
+    16`. (c, last) `train --batch_size 32 --grad_accum auto --epochs 4`:
+    the one-shot step must run out of memory at the first step and fall
+    back to 2 microbatches of 16 (the stderr line), then finish; the peak
+    after the fallback, and the p50 of its 2-microbatch steps after the
+    first, from CUDA events around each call."""
+    import contextlib
+    import gc
+    import io
+
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
+    from multimodal_outage_tpu_torch.data.adjacency import model_supports
+    from multimodal_outage_tpu_torch.data.dataset import batch_indices
+    from multimodal_outage_tpu_torch.models.fusion import build_model
+    from multimodal_outage_tpu_torch.train import loop
+    from multimodal_outage_tpu_torch.train.state import create_train_state
+    from multimodal_outage_tpu_torch.train.steps import make_accum_train_step, make_train_step
+
+    common = ["train", "--data_dir", train_store, "--case", "michael", "--dataset_range",
+              str(TRAIN_MARGIN), "--seed", "0", "--pool", "pallas"]
+    n_train = len(loop.prepare_datasets(cli._config(cli._parser().parse_args(common)),
+                                        "michael")[1])
+    log(f"phase 11: phase 5's store holds {n_train} train windows")
+    if n_train < 32:
+        raise RuntimeError(f"phase 11: {n_train} train windows, 32 needed for B=32")
+    out = {}
+
+    def counters():
+        return (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+
+    def zero():
+        mp.max_pool_forward.launches = mp.max_pool_backward.launches = 0
+
+    def train(argv):
+        cwd = os.getcwd()
+        os.chdir(workdir)  # the run directory is ./logs/<job_id>
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero()
+            t0 = time.perf_counter()
+            res = cli.run(common + argv)
+            torch.cuda.synchronize()
+            return res, counters(), torch.cuda.max_memory_allocated(), time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+
+    def finite(res, label):
+        finals = [v for k, v in res.items() if k.startswith(("val_", "test_"))]
+        if len(finals) != 8 or not all(math.isfinite(v) for v in finals):
+            raise RuntimeError(f"phase {label}: non-finite or missing final metrics {res}")
+
+    # (a) --grad_accum 2 at B=16: microbatches of 8
+    epochs = 2
+    res, pool, peak, wall = train(["--batch_size", "16", "--grad_accum", "2", "--epochs",
+                                   str(epochs), "--job_id", "accum16"])
+    sizes = [len(b) for b in batch_indices(n_train, 16, False, 0)]
+    micro = epochs * sum(loop._accum_split_count(b, 8) for b in sizes)
+    evals = res["eval_forwards"]
+    want = (4 * micro + 4 * evals, 4 * micro)
+    log(f"phase 11a: train --batch_size 16 --grad_accum 2 {json.dumps(res)}; {wall:.3f} s wall")
+    log(f"phase 11a: batches {sizes} per epoch, {micro} microbatches in {res['train_steps']} "
+        f"steps (8 fwd + 8 bwd launches per 2-microbatch step), {evals} eval forwards: pool "
+        f"launches (fwd, bwd) {pool}, expected {want}; step p50 "
+        f"{res['train_step_ms_p50']:.3f} ms (CUDA events, after the first step); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    if pool != want or res["train_steps"] != epochs * len(sizes):
+        raise RuntimeError(f"phase 11a: pool launches {pool}, expected {want}")
+    finite(res, "11a")
+    out["a"] = {"step_ms_p50": res["train_step_ms_p50"], "peak_gib": peak / 2**30,
+                "pool_launches": pool}
+
+    # (b) float32 B=8: 2 microbatches of 4 against the one-shot step
+    store, batch8 = train_batch(torch, train_store, 8)
+    sup = torch.from_numpy(model_supports(ModelConfig(), 67, store.county_names)).cuda()
+    var = weights.init_variables(ModelConfig(), 7, 67, seed=3)
+
+    def one_step(cfg, batch, make):
+        model = weights.load_variables(build_model(cfg, 7, 67, 128), var).cuda()
+        m = make(model)(create_train_state(model), batch, sup, LR, 0)
+        return _step_state(torch, model, m["loss"])
+
+    # dropout off: the microbatches draw other masks than the one-shot step
+    f32 = ModelConfig(compute_dtype="float32", pool="pallas", encoder_dropout=0.0,
+                      gwnet=GWNetConfig(dropout=0.0))
+    torch.backends.cudnn.deterministic = True
+    try:
+        accum = one_step(f32, batch8, lambda m: make_accum_train_step(m, 2))
+        whole = one_step(f32, batch8, make_train_step)
+        torch.backends.cudnn.enabled = False
+        ref = one_step(f32, batch8, make_train_step)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.enabled = True
+    gaps = _step_gaps(accum, whole, ACCUM_GRAD_RTOL)
+    e_acc, e_one = (_step_gaps(st, ref, ACCUM_GRAD_RTOL) for st in (accum, whole))
+    ok = (gaps["loss"] <= ACCUM_RTOL and gaps["bn_stats"] <= ACCUM_RTOL
+          and e_acc["grad"] <= ACCUM_RATIO * e_one["grad"] + ACCUM_GRAD_RTOL
+          and e_acc["params"] <= ACCUM_RATIO * e_one["params"] + 1e-6
+          and gaps["params_any"] <= 2 * LR + 1e-6)
+    log(f"phase 11b: float32 B=8 step, 2 microbatches of 4 vs one-shot: gaps {json.dumps(gaps)}; "
+        f"against the one-shot step without cuDNN: accumulating {json.dumps(e_acc)}, one-shot "
+        f"{json.dumps(e_one)} (bars: loss, BN stats {ACCUM_RTOL}; grad and params at most "
+        f"{ACCUM_RATIO}× the one-shot's + {ACCUM_GRAD_RTOL} / 1e-6), ok {ok}")
+    if not ok:
+        raise RuntimeError(f"phase 11b: the accumulating step is off the one-shot step: {gaps}")
+    out["b"] = {"gaps": gaps, "grad_vs_native": (e_acc["grad"], e_one["grad"]),
+                "params_vs_native": (e_acc["params"], e_one["params"])}
+
+    # (d) each remat scope on one B=16 batch through make_train_step
+    del batch8, accum, whole
+    _, batch16 = train_batch(torch, train_store, 16)
+    scopes = {}
+    for scope in ("none", "stem", "all", "conv"):
+        cfg = ModelConfig(pool="pallas", remat=scope != "none",
+                          remat_scope="all" if scope == "none" else scope)
+        model = weights.load_variables(build_model(cfg, 7, 67, 128), var).cuda()
+        state, step = create_train_state(model), make_train_step(model)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batch16, sup, LR, 0)  # warm-up
+        torch.cuda.synchronize()
+        zero()
+        times = []
+        for _ in range(5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            step(state, batch16, sup, LR, 0)
+            ev[1].record()
+            times.append(ev)
+        torch.cuda.synchronize()
+        fwd, bwd = counters()
+        scopes[scope] = {
+            "step_ms_p50": sorted(a.elapsed_time(b) for a, b in times)[2],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "pool_per_step": (fwd / 5, bwd / 5),
+        }
+        del model, state, step
+        gc.collect()
+        log(f"phase 11d: remat {scope} B=16 bf16: {json.dumps(scopes[scope])}")
+    want_fwd = {"none": 4, "stem": 5, "all": 8, "conv": 8}
+    bad = [s for s, r in scopes.items() if r["pool_per_step"] != (want_fwd[s], 4)]
+    pk = {s: r["peak_gib"] for s, r in scopes.items()}
+    order = pk["all"] < pk["stem"] < pk["none"] and pk["conv"] < pk["none"]
+    log(f"phase 11d: pool launches per step as expected (fwd 4/5/8/8, bwd 4) {not bad}; peaks "
+        f"all < stem < none and conv < none {order}")
+    if bad or not order:
+        raise RuntimeError(f"phase 11d: launches off for {bad} or peaks out of order {pk}")
+    del batch16
+    _, batch2 = train_batch(torch, train_store, 2)
+    torch.backends.cudnn.deterministic = True
+    try:
+        f32s = {s: one_step(ModelConfig(compute_dtype="float32", pool="pallas",
+                                        remat=s != "none",
+                                        remat_scope="all" if s == "none" else s),
+                            batch2, make_train_step)
+                for s in ("none", "stem", "all", "conv")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    remat_gaps = {s: _step_gaps(f32s[s], f32s["none"], REMAT_RTOL) for s in ("stem", "all", "conv")}
+    bad = [s for s, g in remat_gaps.items() if not _gaps_ok(g, REMAT_RTOL)]
+    log(f"phase 11d: float32 B=2 step per scope vs no remat: gaps {json.dumps(remat_gaps)} "
+        f"(bar {REMAT_RTOL}; params 1e-6), off {bad}")
+    if bad:
+        raise RuntimeError(f"phase 11d: a remat step is off the plain step: {bad}")
+    out["d"] = {"scopes": scopes, "f32_gap": max(max(g.values()) for g in remat_gaps.values())}
+    del batch2, f32s
+
+    # (e) --remat --remat_scope stem at B=16 through the CLI
+    res, pool, peak, wall = train(["--batch_size", "16", "--remat", "--remat_scope", "stem",
+                                   "--epochs", "1", "--job_id", "remat_stem"])
+    steps, evals = res["train_steps"], res["eval_forwards"]
+    want = (5 * steps + 4 * evals, 4 * steps)
+    log(f"phase 11e: train --remat --remat_scope stem --batch_size 16 {json.dumps(res)}; "
+        f"{wall:.3f} s wall; pool launches {pool}, expected {want}; step p50 "
+        f"{res['train_step_ms_p50']:.3f} ms; peak memory {peak / 2**30:.2f} GiB")
+    if pool != want:
+        raise RuntimeError(f"phase 11e: pool launches {pool}, expected {want}")
+    finite(res, "11e")
+    out["e"] = {"step_ms_p50": res["train_step_ms_p50"], "peak_gib": peak / 2**30,
+                "pool_launches": pool}
+
+    # (c) --grad_accum auto at B=32: the one-shot step must run out of memory
+    seen = {"first_accum_step": None, "peak_reset": False, "events": []}
+    real_make = loop.make_accum_train_step
+
+    def make(model, accum, debug_nans=False):
+        inner = real_make(model, accum, debug_nans)
+
+        def timed(state, *args):
+            if seen["first_accum_step"] is None:
+                seen["first_accum_step"] = state.step
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()  # the settled peak from here
+                seen["peak_reset"] = True
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            m = inner(state, *args)
+            ev[1].record()
+            seen["events"].append((accum, ev))
+            return m
+
+        return timed
+
+    err = io.StringIO()
+    loop.make_accum_train_step = make
+    try:
+        with contextlib.redirect_stderr(err):
+            res, pool, peak, wall = train(["--batch_size", "32", "--grad_accum", "auto",
+                                           "--epochs", "4", "--job_id", "auto32"])
+    finally:
+        loop.make_accum_train_step = real_make
+    lines = [line for line in err.getvalue().splitlines() if "[auto grad_accum]" in line]
+    sys.stderr.write(err.getvalue())
+    want_line = "[auto grad_accum] step OOM'd; retrying with microbatch <= 16 (2 microbatches " \
+                "at batch 32)"
+    two = [ev for k, ev in seen["events"] if k == 2][1:]
+    p50 = sorted(a.elapsed_time(b) for a, b in two)[len(two) // 2] if two else float("nan")
+    log(f"phase 11c: train --batch_size 32 --grad_accum auto {json.dumps(res)}; {wall:.3f} s "
+        f"wall; stderr {lines}; first accumulating step at global step "
+        f"{seen['first_accum_step']}; split counts run {[k for k, _ in seen['events']]}; "
+        f"2-microbatch step p50 {p50:.3f} ms (CUDA events, {len(two)} after the first); "
+        f"settled peak {peak / 2**30:.2f} GiB; pool launches {pool}")
+    if lines != [want_line]:
+        raise RuntimeError(f"phase 11c: the one-shot B=32 step did not run out of memory once "
+                           f"and fall back to 2 microbatches of 16: stderr lines {lines}")
+    if seen["first_accum_step"] != 0 or not seen["peak_reset"] or len(two) < 2:
+        raise RuntimeError(f"phase 11c: the fallback was not at the first step: {seen}")
+    finite(res, "11c")
+    out["c"] = {"step_ms_p50": p50, "settled_peak_gib": peak / 2**30, "pool_launches": pool,
+                "fallback_at_step": seen["first_accum_step"] + 1}
+    return out
+
+
 def by_supports(rows, b):
     """Phase 9c's S = 1 and S = 3 rows of a kernel for the kernels line:
     each S's largest error over both dtypes and its bf16 time at batch b
@@ -1460,6 +1779,8 @@ def main() -> int:
         p10 = nonfused_gwnet_end_to_end(torch, cli, dcm, gsm, glm, mp, weights, workdir,
                                         store_dir, train_store, gen)
         log(f"phase 10: {json.dumps(p10)}")
+        p11 = accum_remat_end_to_end(torch, cli, mp, workdir, train_store)
+        log(f"phase 11: {json.dumps(p11)}")
 
     main_dc = [r for r in dc_rows if r["dtype"] == "bfloat16"]
     main_st = [r for r in st_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]
@@ -1496,6 +1817,8 @@ def main() -> int:
             "source": "multimodal_outage_tpu_torch/csrc/max_pool.cu",
             "replaces": "multimodal_outage_tpu/ops/pool_pallas.py:" + ("163", "191")[i],
             "launches": pool_launches[i],
+            # phase 11's runs: (a) grad_accum 2, (e) remat stem, (c) auto at B=32
+            "launches_phase11": {k: p11[k]["pool_launches"][i] for k in ("a", "e", "c")},
             "max_abs_err": max(r["max_abs_err"] for r in mp_rows if r["kernel"] == name),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

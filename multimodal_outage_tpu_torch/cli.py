@@ -134,9 +134,25 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _grad_accum_arg(v: str) -> int:
+    """--grad_accum value: a positive int, or 'auto' (= 0 internally,
+    TrainConfig.grad_accum) for the out-of-memory fallback (JAX cli.py:
+    22-32)."""
+    if v.strip().lower() == "auto":
+        return 0
+    try:
+        return int(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an integer or 'auto', got {v!r}"
+        ) from None
+
+
 def _graph_flags(p: argparse.ArgumentParser) -> None:
-    """The model and graph flags that train, evaluate and serve share
-    with the JAX CLI (its cli.py:35-81)."""
+    """The model, graph and memory flags that train, evaluate and serve
+    share with the JAX CLI (its _add_common_model_flags, cli.py:35-140).
+    evaluate and serve record the memory flags in the Config; only
+    train's steps read them."""
     p.add_argument("--n_counties", type=int, default=67,
                    help="recorded in the config; the store's county count is used")
     p.add_argument("--input_channels", type=int, default=1)
@@ -162,6 +178,23 @@ def _graph_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--gwnet_kernel_size", type=int, default=None,
                    help="Graph WaveNet's temporal kernel (default 1; >1 is the dilated "
                    "gated TCN, receptive field 13 at 2)")
+    p.add_argument("--remat", action="store_true",
+                   help="train: recompute U-Net conv blocks in the backward "
+                   "(torch.utils.checkpoint) for less activation memory")
+    p.add_argument("--remat_scope", choices=("all", "stem", "conv"), default="all",
+                   help="with --remat: 'all' every block; 'stem' the top two resolutions' "
+                   "blocks (inc, down1, up3, up4); 'conv' every block with the "
+                   "convolution outputs kept, so only the BatchNorm/ReLU/pool/concat "
+                   "between them is recomputed")
+    p.add_argument("--grad_accum", type=_grad_accum_arg, default=1,
+                   help="train: run each batch as N equal microbatches, forward and "
+                   "backward one after another, then one update: the full batch's "
+                   "gradients and serial-EMA BatchNorm statistics at one microbatch's "
+                   "activation memory. 'auto' (or 0) starts one-shot and, when a step "
+                   "runs out of device memory, retries it split finer")
+    p.add_argument("--xla_vmem_limit_kib", type=int, default=49152,
+                   help="recorded in the config for the JAX CLI's sake (an XLA TPU "
+                   "compiler budget); the port does not read it")
 
 
 def _model_flags(p: argparse.ArgumentParser) -> None:
@@ -218,7 +251,8 @@ def _config(args: argparse.Namespace):
         model=ModelConfig(
             st_gnn=args.st_gnn, input_channels=args.input_channels,
             output_channels=args.output_channels, compute_dtype=args.compute_dtype,
-            d2v_bundle=args.d2v_bundle, pool=getattr(args, "pool", "reduce_window"),
+            d2v_bundle=args.d2v_bundle, remat=args.remat, remat_scope=args.remat_scope,
+            pool=getattr(args, "pool", "reduce_window"),
             bn_single_pass=not getattr(args, "bn_two_pass", False),
             gwnet=GWNetConfig(**gwnet),
             dcrnn=DCRNNConfig(teacher_forcing=getattr(args, "teacher_forcing", 0.0),
@@ -226,6 +260,7 @@ def _config(args: argparse.Namespace):
         ),
         train=TrainConfig(
             epochs=getattr(args, "epochs", 5), batch_size=args.batch_size,
+            grad_accum=args.grad_accum, xla_vmem_limit_kib=args.xla_vmem_limit_kib,
             job_id=getattr(args, "job_id", "test"), seed=getattr(args, "seed", 42),
             resume=getattr(args, "resume", False),
             tensorboard=getattr(args, "tensorboard", False),

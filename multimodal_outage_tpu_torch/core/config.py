@@ -109,9 +109,10 @@ class ModelConfig:
 @dataclass(frozen=True)
 class TrainConfig:
     """The JAX TrainConfig's fields and defaults (JAX core/config.py:171-212).
-    train/loop.py:fit raises on the knob the port does not run yet
-    (grad_accum ≠ 1); donate_buffers and xla_vmem_limit_kib are XLA settings that the port
-    keeps for the config record and does not read."""
+    grad_accum: N equal microbatches per step, or 0 for the out-of-memory
+    fallback (train/loop.py fit); donate_buffers and xla_vmem_limit_kib are
+    XLA settings that the port keeps for the config record and does not
+    read."""
 
     epochs: int = 5  # reference lit.py:211
     batch_size: int = 16  # reference lit.py:213

@@ -55,7 +55,7 @@ class ModifiedUNet(nn.Module):
         grid = image_size // 2**cfg.depth
         self.contraction = Contraction(
             cfg.input_channels, cfg.base_channels, cfg.depth, cfg.remat, sp,
-            cfg.pool, dtype, pool_reference,
+            cfg.pool, dtype, pool_reference, remat_scope=cfg.remat_scope,
         )
         self.encoder = BottleneckEncoder(
             grid * grid * top, cfg.feature_vector_size, cfg.compression_factor,
@@ -77,6 +77,7 @@ class ModifiedUNet(nn.Module):
         )
         self.expansion = Expansion(
             cfg.output_channels, cfg.base_channels, cfg.depth, cfg.remat, sp, dtype,
+            remat_scope=cfg.remat_scope,
         )
 
     def forward(

@@ -10,16 +10,29 @@ the forward, as flax's `dtype=` does.
 Activations are [..., H, W, C] with any leading axes; convolutions fold
 the leading axes into one batch axis and run through cuDNN on a
 channels-last view, as the JAX package leaves them to XLA.
+
+remat() runs a block under torch.utils.checkpoint so that the backward
+recomputes its activations (JAX nn.remat). GroupedBatchNorm knows when it
+runs inside such a block: the recompute neither updates the running
+statistics again nor reads them as the forward pass left them, so a
+remat'd step equals the plain step bitwise, as flax's remat, which
+carries batch_stats into the recomputed function, does.
 """
 
 from __future__ import annotations
 
 import math
+import threading
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from multimodal_outage_tpu_torch.ops.max_pool import (
     MaxPool2x2Reference,
@@ -124,7 +137,11 @@ class GroupedBatchNorm(nn.Module):
     w_k = m(1−m)^(G−1−k), groups in C order (batch outer, county inner:
     :132-151); serial_ema=False the uniform EMA of the group means
     (:152-167). Eval mode normalizes with the running statistics. The
-    output is cast back to the input dtype (:172-174)."""
+    output is cast back to the input dtype (:172-174).
+
+    Inside remat(): the forward pass records the running mean its single
+    sweep is shifted by, and the backward's recompute reads that record
+    and leaves the running statistics alone."""
 
     def __init__(self, features: int, num_group_axes: int, momentum: float = 0.1,
                  eps: float = 1e-5, serial_ema: bool = True, single_pass: bool = False):
@@ -148,7 +165,7 @@ class GroupedBatchNorm(nn.Module):
         g = math.prod(x.shape[: self.num_group_axes])
         xg = x.float().reshape(g, -1, x.shape[-1])  # [G, m, C]
         if self.single_pass:
-            m0 = self.mean.clone()
+            m0 = self._shift()
             xs = xg - m0
             s1 = xs.mean(dim=1, keepdim=True)
             s2 = xs.square().mean(dim=1, keepdim=True)
@@ -157,9 +174,21 @@ class GroupedBatchNorm(nn.Module):
         else:
             mean = xg.mean(dim=1, keepdim=True)
             var = (xg - mean).square().mean(dim=1, keepdim=True)
-        self._update_running(mean.detach(), var.detach(), xg.shape[1])
+        if not getattr(_REMAT, "replay", False):
+            self._update_running(mean.detach(), var.detach(), xg.shape[1])
         inv = torch.rsqrt(var + self.eps) * self.scale
         return ((xg - mean) * inv + self.bias).to(x.dtype).reshape(x.shape)
+
+    def _shift(self) -> torch.Tensor:
+        """The running mean the single sweep is shifted by: as it stands,
+        or inside remat() as it stood when the forward pass ran."""
+        frame = getattr(_REMAT, "frame", None)
+        if frame is None:
+            return self.mean.clone()
+        if _REMAT.replay:
+            return frame[self]
+        frame[self] = self.mean.clone()
+        return frame[self]
 
     @torch.no_grad()
     def _update_running(self, mean: torch.Tensor, var: torch.Tensor, m: int) -> None:
@@ -177,6 +206,65 @@ class GroupedBatchNorm(nn.Module):
         else:
             self.mean.copy_((1 - mom) * self.mean + mom * s_mean.mean(0))
             self.var.copy_((1 - mom) * self.var + mom * s_var.mean(0))
+
+
+# the remat() call running on this thread: .frame, a dict of the shift
+# each GroupedBatchNorm took on its forward pass; .replay, True during the
+# backward's recompute
+_REMAT = threading.local()
+
+
+class _RematPass:
+    """One pass of a remat() call, the forward (replay False) or the
+    backward's recompute (replay True), around the selective-checkpoint
+    context of the pass when there is one."""
+
+    def __init__(self, frame: dict, replay: bool, inner=None):
+        self.frame, self.replay, self.inner = frame, replay, inner
+
+    def __enter__(self) -> "_RematPass":
+        self.prev = (getattr(_REMAT, "frame", None), getattr(_REMAT, "replay", False))
+        _REMAT.frame, _REMAT.replay = self.frame, self.replay
+        if self.inner is not None:
+            self.inner.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        try:
+            if self.inner is not None:
+                self.inner.__exit__(*exc)
+        finally:
+            _REMAT.frame, _REMAT.replay = self.prev
+        return False
+
+
+def _save_conv_outputs(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of remat_scope "conv": keep the
+    outputs of the 3×3 convolutions and the ConvTranspose (F.conv2d and
+    F.conv_transpose2d both dispatch aten.convolution), recompute the rest
+    (JAX save_only_these_names("conv_out") on layers.py:203, 303)."""
+    if op is torch.ops.aten.convolution.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(block: nn.Module, *args, save_convs: bool = False) -> torch.Tensor:
+    """block(*args) with its activations recomputed in the backward
+    (non-reentrant torch.utils.checkpoint; JAX nn.remat). save_convs keeps
+    the convolution outputs and recomputes only what lies between them.
+    The blocks draw no random numbers, so no RNG state is stashed. A
+    kernel called through ctypes inside the block (the max-pool pair)
+    runs again in the recompute."""
+
+    def contexts():
+        frame: dict = {}
+        fwd = rec = None
+        if save_convs:
+            fwd, rec = create_selective_checkpoint_contexts(_save_conv_outputs)
+        return _RematPass(frame, False, fwd), _RematPass(frame, True, rec)
+
+    return checkpoint(block, *args, use_reentrant=False, context_fn=contexts,
+                      preserve_rng_state=False)
 
 
 class DoubleConv(nn.Module):

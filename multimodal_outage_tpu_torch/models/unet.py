@@ -4,6 +4,15 @@
 Channel schedule: contraction C_in →4 →8 →16 →32 →64 (H → H/16), the
 bottleneck MLPs flat(64·(H/16)²) →/4 →256 and back, expansion 64 →32 →16
 →8 →4 → C_out with the skip pyramid consumed in reverse.
+
+remat (JAX models/unet.py:26-98, 147-189) recomputes conv blocks in the
+backward of a train-mode forward under grad (layers.remat); an eval
+forward, or one without grad (DCRNN's teacher pass), runs them plainly.
+remat_scope "all" wraps every block; "stem" the blocks of the top two
+resolutions, inc and down1 in the contraction and the last two Ups
+(up3, up4 at depth 4) in the expansion; "conv" every block, keeping the
+convolution outputs. The blocks keep their names, so parameter and
+buffer names, and with them checkpoints, are the same across the toggle.
 """
 
 from __future__ import annotations
@@ -20,12 +29,23 @@ from multimodal_outage_tpu_torch.models.layers import (
     OutConv,
     Up,
     dropout,
+    remat,
 )
 
-_REMAT = (
-    "remat (recompute conv blocks in the backward) comes with the ROADMAP "
-    "item 'grad_accum and remat (torch.utils.checkpoint)'"
-)
+
+def _call(block: nn.Module, scope: Optional[str], stem: bool, *args) -> torch.Tensor:
+    """block(*args) under the remat scope in force (None: no remat)."""
+    if scope == "conv":
+        return remat(block, *args, save_convs=True)
+    if scope == "all" or (scope == "stem" and stem):
+        return remat(block, *args)
+    return block(*args)
+
+
+def _scope(module: nn.Module, train: bool) -> Optional[str]:
+    if module.remat and train and torch.is_grad_enabled():
+        return module.remat_scope
+    return None
 
 
 class Contraction(nn.Module):
@@ -34,10 +54,9 @@ class Contraction(nn.Module):
     def __init__(self, input_channels: int = 1, base_channels: int = 4, depth: int = 4,
                  remat: bool = False, bn_single_pass: bool = False,
                  pool: str = "reduce_window", dtype: torch.dtype = torch.float32,
-                 pool_reference: bool = False):
+                 pool_reference: bool = False, remat_scope: str = "all"):
         super().__init__()
-        if remat:
-            raise NotImplementedError(_REMAT)
+        self.remat, self.remat_scope = remat, remat_scope
         sp = bn_single_pass
         self.inc = DoubleConv(input_channels, base_channels, dtype=dtype, bn_single_pass=sp)
         ch = base_channels
@@ -51,10 +70,11 @@ class Contraction(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool, sample_weight=None
                 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
-        x = self.inc(x, train, sample_weight)
+        scope = _scope(self, train)
+        x = _call(self.inc, scope, True, x, train, sample_weight)
         skips = [x]
         for i in range(self.depth):
-            x = getattr(self, f"down{i + 1}")(x, train, sample_weight)
+            x = _call(getattr(self, f"down{i + 1}"), scope, i == 0, x, train, sample_weight)
             if i < self.depth - 1:
                 skips.append(x)
         return x, tuple(skips)
@@ -105,10 +125,9 @@ class Expansion(nn.Module):
 
     def __init__(self, output_channels: int = 1, base_channels: int = 4, depth: int = 4,
                  remat: bool = False, bn_single_pass: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat_scope: str = "all"):
         super().__init__()
-        if remat:
-            raise NotImplementedError(_REMAT)
+        self.remat, self.remat_scope = remat, remat_scope
         ch = base_channels * 2 ** (depth - 1)
         self.depth = depth
         for i in range(depth):
@@ -119,6 +138,8 @@ class Expansion(nn.Module):
 
     def forward(self, x: torch.Tensor, skips: Tuple[torch.Tensor, ...], train: bool,
                 sample_weight=None) -> torch.Tensor:
+        scope = _scope(self, train)
         for i in range(self.depth):
-            x = getattr(self, f"up{i + 1}")(x, skips[-(i + 1)], train, sample_weight)
+            x = _call(getattr(self, f"up{i + 1}"), scope, i >= self.depth - 2, x,
+                      skips[-(i + 1)], train, sample_weight)
         return self.outc(x)

@@ -16,17 +16,25 @@ embeddings from the SVD of the first static support (models/gwnet.py
 install_aptinit), as the JAX loop does; predict and serve read them from
 the checkpoint.
 
-Not here yet (each raises when asked for): grad accumulation, remat,
-mesh/SPMD with sample_weight, batch transform hooks.
-Batches come from the device pipeline (data/pipeline.py); the host
-prefetch path is not ported.
+Gradient accumulation (TrainConfig.grad_accum, JAX train/loop.py:
+519-597): a fixed split count K runs each batch as K equal microbatches
+(train/steps.py make_accum_train_step); grad_accum 0 ("auto") starts
+one-shot and, when a step runs out of device memory, retries it with the
+next split count that divides the batch. Remat is the model's
+(ModelConfig.remat, models/unet.py).
+
+Not here yet (check_supported raises): mesh/SPMD with sample_weight.
+The batch transform hooks are not ported. Batches come from the device
+pipeline (data/pipeline.py); the host prefetch path is not ported.
 """
 
 from __future__ import annotations
 
+import gc
 import os
+import sys
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +47,7 @@ from multimodal_outage_tpu_torch.core.checkpoint import (
 from multimodal_outage_tpu_torch.core.config import Config, asdict
 from multimodal_outage_tpu_torch.core.device import resolve_device
 from multimodal_outage_tpu_torch.core.metrics import MeanAggregator, regression_metrics
+from multimodal_outage_tpu_torch.core.oom import is_oom_error
 from multimodal_outage_tpu_torch.core.registry import leave_one_out
 from multimodal_outage_tpu_torch.core.run_logging import RunLogger, device_memory_stats
 from multimodal_outage_tpu_torch.data.adjacency import config_supports
@@ -58,26 +67,132 @@ from multimodal_outage_tpu_torch.train.state import (
     create_train_state,
     param_count,
 )
-from multimodal_outage_tpu_torch.train.steps import make_predict_step, make_train_step
+from multimodal_outage_tpu_torch.train.steps import (
+    make_accum_train_step,
+    make_predict_step,
+    make_train_step,
+)
 from multimodal_outage_tpu_torch.weights import init_variables, load_variables, module_variables
 
 
 def check_supported(cfg: Config) -> None:
-    """Raise on the settings this slice of the port does not run."""
-    t, mesh = cfg.train, cfg.mesh
-    todo = {
-        "grad_accum != 1": (t.grad_accum != 1, "grad_accum and remat"),
-        "remat": (cfg.model.remat, "grad_accum and remat"),
-        "a device mesh": (
-            mesh.model != 1 or mesh.time != 1 or mesh.data not in (-1, 1),
-            "SPMD with sample_weight",
-        ),
-    }
-    for what, (asked, item) in todo.items():
-        if asked:
-            raise NotImplementedError(
-                f"{what}: not in the port yet; it comes with the ROADMAP item '{item}'"
+    """Raise on the settings this slice of the port does not run: a device
+    mesh, and with it first grad_accum != 1, which JAX refuses on a mesh
+    (train/loop.py:457-462)."""
+    mesh = cfg.mesh
+    if mesh.model != 1 or mesh.time != 1 or mesh.data not in (-1, 1):
+        if cfg.train.grad_accum != 1:
+            raise ValueError(
+                "grad_accum (including auto) is a single-device-path "
+                "feature; with a mesh, scale batch over the data axis "
+                "instead"
             )
+        raise NotImplementedError(
+            "a device mesh: not in the port yet; it comes with the ROADMAP item "
+            "'SPMD with sample_weight'"
+        )
+
+
+def _accum_split_count(b: int, mb_size: int) -> int:
+    """Smallest number of EQUAL microbatches of size <= mb_size that b
+    divides into (grad-accumulation splitting rule). Equal microbatches
+    keep the accumulation exact — mean of equal-chunk gradients == the
+    full-batch gradient and the serial-EMA BatchNorm telescopes — while
+    never running a chunk larger than the microbatch budget: a one-shot
+    near-full ragged tail would OOM on exactly the configs grad_accum
+    exists for (b=16 does not fit a 16 GB chip). Always terminates:
+    k=b gives microbatch size 1."""
+    if b <= mb_size:
+        return 1
+    k = -(-b // mb_size)  # ceil
+    while b % k:
+        k += 1
+    return k
+
+
+def _next_split_count(b: int, k: int) -> int:
+    """Smallest split count > k that divides b into equal microbatches —
+    the auto-grad-accum OOM fallback steps the SPLIT COUNT, not the
+    budget: halving the byte budget can leave the split count unchanged
+    (re-dispatching the identical failing program) or overshoot past a
+    split that fits (b=6: budgets 6→3→1 give k=1→2→6, skipping k=3)."""
+    k += 1
+    while b % k:
+        k += 1
+    return k
+
+
+def _grad_accum_step(cfg: Config, model: torch.nn.Module,
+                     one_shot: Callable[..., Dict[str, torch.Tensor]]):
+    """fit's train step for cfg.train.grad_accum != 1 (JAX train/loop.py:
+    519-597). K > 0: microbatches of at most batch_size // K, a ragged
+    last batch b in _accum_split_count(b, budget) equal ones. K = 0
+    ("auto"): the budget starts at the whole batch; a step that runs out
+    of device memory is retried at _next_split_count's split, with a line
+    on stderr, and every later step keeps the smaller budget.
+
+    The JAX loop fetches a metric for the first _AUTO_ACCUM_SETTLE steps
+    of a shape, because its dispatch is asynchronous and a runtime OOM
+    shows only at the next host fetch. PyTorch's caching allocator raises
+    in the call that allocates, inside the step, so no fetch is needed.
+    Before each auto attempt the module's buffers (the BatchNorm running
+    statistics, a few KB) are copied; a failed attempt may have advanced
+    some in place, so they are put back and every .grad is dropped before
+    the retry, which runs after the exception and its traceback (which
+    holds the failed attempt's activations) are released. An OOM after
+    Adam began (its count moved) may have updated some parameters and is
+    not retried: it raises a RuntimeError naming the --grad_accum or
+    --batch_size that would fit (the counterpart of JAX's abort when a
+    runtime OOM consumed the donated state)."""
+    ga, bs = cfg.train.grad_accum, cfg.train.batch_size
+    auto = ga == 0
+    if not auto and bs % ga:
+        raise ValueError(f"batch_size {bs} not divisible by grad_accum {ga}")
+    budget = bs if auto else bs // ga
+    steps = {1: one_shot}
+    buffers, params = list(model.buffers()), list(model.parameters())
+
+    def train_step(state, batch, supports, lr, seed):
+        nonlocal budget
+        b = batch["x"].shape[0]
+        while True:
+            k = _accum_split_count(b, budget)
+            if k not in steps:
+                steps[k] = make_accum_train_step(model, k, cfg.train.debug_nans)
+            if not auto:
+                return steps[k](state, batch, supports, lr, seed)
+            saved = [t.clone() for t in buffers]
+            count = state.opt.count
+            try:
+                return steps[k](state, batch, supports, lr, seed)
+            except RuntimeError as e:  # torch.cuda.OutOfMemoryError is one
+                if not (is_oom_error(e) and k < b):
+                    raise
+                if state.opt.count != count:
+                    raise RuntimeError(
+                        "auto grad_accum cannot retry: the step ran out of device "
+                        "memory in the optimizer update, after some parameters may "
+                        "have moved. Restart with an explicit --grad_accum >= "
+                        f"{_next_split_count(bs, _accum_split_count(bs, budget))} "
+                        "or a smaller --batch_size"
+                    ) from e
+            # retry outside the except block: its traceback is released
+            gc.collect()
+            with torch.no_grad():
+                for t, s in zip(buffers, saved):
+                    t.copy_(s)
+            for p in params:
+                p.grad = None
+            budget = b // _next_split_count(b, k)
+            print(
+                f"[auto grad_accum] step OOM'd; retrying with "
+                f"microbatch <= {budget} "
+                f"({_accum_split_count(b, budget)} "
+                f"microbatches at batch {b})",
+                file=sys.stderr,
+            )
+
+    return train_step
 
 
 def prepare_datasets(
@@ -233,6 +348,8 @@ def fit(
     if progress:
         print(f"Model parameters: {param_count(model):,}")
     train_step = make_train_step(model, debug_nans=cfg.train.debug_nans)
+    if cfg.train.grad_accum != 1:
+        train_step = _grad_accum_step(cfg, model, train_step)
     predict_step = make_predict_step(model)
     pipe = DevicePipeline(store, cfg.data.mean, cfg.data.std, size,
                           getattr(torch, cfg.data.device_dtype), dev)

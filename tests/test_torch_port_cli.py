@@ -11,6 +11,18 @@ import torch
 from multimodal_outage_tpu_torch import cli, weights
 from multimodal_outage_tpu_torch.core.config import ModelConfig
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TINY = ["--dataset_range", "12", "--horizon", "3", "--image_size", "16", "--batch_size", "2"]
 
 

@@ -23,6 +23,17 @@ from multimodal_outage_tpu_torch.data.store import load_store
 from multimodal_outage_tpu_torch.data.synthetic import generate_store
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("size", [16, 8, 24])  # no resize, shrink, grow
 def test_frame_transform_matches_jax(size):
     win = np.random.default_rng(size).uniform(0, 40, (2, 3, 2, 16, 16)).astype(np.float32)

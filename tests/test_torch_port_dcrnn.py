@@ -26,6 +26,18 @@ from multimodal_outage_tpu_torch.models.dcrnn import DCRNN
 from multimodal_outage_tpu_torch.ops import dcrnn_stack as dsm
 from multimodal_outage_tpu_torch.serving import ServingModel
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N, T, DIN, DOUT, UNITS = 6, 4, 12, 10, 8
 TOL = dict(atol=5e-5, rtol=1e-4)
 

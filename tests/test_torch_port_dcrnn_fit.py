@@ -25,6 +25,18 @@ from multimodal_outage_tpu_torch.core.config import (
 from multimodal_outage_tpu_torch.models.fusion import build_model
 from multimodal_outage_tpu_torch.train import loop
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T = 3
 KEYS = ("loss", "mae", "mape", "rmse")
 

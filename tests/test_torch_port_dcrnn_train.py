@@ -67,6 +67,18 @@ from multimodal_outage_tpu_torch.train.steps import (
     uses_teacher_forcing,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, N, T, H = 2, 4, 3, 32
 LR = 1e-3
 SEED = 42  # TrainConfig's default: draws the synthetic 4-county graph

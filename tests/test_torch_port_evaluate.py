@@ -35,6 +35,18 @@ from multimodal_outage_tpu_torch.data.store import load_store, save_store
 from multimodal_outage_tpu_torch.train.loop import predict
 from multimodal_outage_tpu_torch.viz import maps
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 T, H = 3, 16
 TINY = ["--dataset_range", "12", "--horizon", str(T), "--image_size", str(H),
         "--batch_size", "2", "--compute_dtype", "float32"]

@@ -24,6 +24,18 @@ from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
 from multimodal_outage_tpu_torch.models.gwnet import GraphWaveNet
 from multimodal_outage_tpu_torch.ops import gwnet_layer as glm
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, N, T, C, CD, CS = 2, 7, 3, 8, 8, 16
 ORDER = 2
 TOL = dict(atol=5e-5, rtol=1e-4)

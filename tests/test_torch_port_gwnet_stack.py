@@ -15,6 +15,18 @@ import torch
 from multimodal_outage_tpu_torch.ops import fragments as fr
 from multimodal_outage_tpu_torch.ops import gwnet_stack as gsm
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (Cin, C, Cd, Cs, Ce, Cout, L, S, order): the default config, the narrow
 # test config, widths that pad every tile, and 3 supports at order 3
 WIDTHS = {

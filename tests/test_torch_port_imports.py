@@ -38,7 +38,7 @@ def test_port_imports_no_jax_in_fresh_interpreter():
     for m in ("ops.max_pool", "models.layers", "models.unet", "models.fusion",
               "train.state", "train.steps", "train.loop", "core.checkpoint",
               "core.run_logging", "ops.gwnet_layer", "ops.dcrnn_stack", "models.dcrnn",
-              "data.stats", "viz.maps", "train.date2vec_pretrain"):
+              "data.stats", "viz.maps", "train.date2vec_pretrain", "core.oom"):
         assert f"multimodal_outage_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -19,6 +19,17 @@ from multimodal_outage_tpu_torch.weights import from_flax
 from multimodal_outage_tpu_torch.ops import gwnet_stack as gsm
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _double_conv_inputs(m, h, cin, c, seed):
     rng = np.random.default_rng(seed)
     f = np.float32

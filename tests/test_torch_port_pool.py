@@ -16,6 +16,18 @@ from multimodal_outage_tpu.ops.pool_pallas import supports_shape as jax_supports
 from multimodal_outage_tpu_torch.models.layers import max_pool_2x2
 from multimodal_outage_tpu_torch.ops import max_pool as mp
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 

@@ -32,6 +32,18 @@ from multimodal_outage_tpu_torch.models.date2vec import Date2VecAutoencoder
 from multimodal_outage_tpu_torch.train import loop
 from multimodal_outage_tpu_torch.train.state import Adam
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # narrow models: resume is exact at any width
 NARROW = dict(compute_dtype="float32", base_channels=2, depth=2, feature_vector_size=8,
               compression_factor=2, time_embed_size=8)

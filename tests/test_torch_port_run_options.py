@@ -57,6 +57,18 @@ from multimodal_outage_tpu_torch.train import loop
 from multimodal_outage_tpu_torch.train.state import Adam, create_train_state
 from multimodal_outage_tpu_torch.train.steps import make_train_step
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, N, T, H, K = 2, 4, 3, 16, 64
 # a narrow fusion model (a full-width one takes ~50 s of XLA CPU compile)
 # with the full Date2Vec width K

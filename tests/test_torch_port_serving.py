@@ -18,6 +18,18 @@ from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
 from multimodal_outage_tpu_torch.ops.double_conv import fused_double_conv, kernel_takes
 from multimodal_outage_tpu_torch.serving import ServingModel
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N, T, H = 4, 2, 16
 
 

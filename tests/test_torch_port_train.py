@@ -70,6 +70,18 @@ from multimodal_outage_tpu_torch.train import loop
 from multimodal_outage_tpu_torch.train.state import create_train_state
 from multimodal_outage_tpu_torch.train.steps import make_predict_step, make_train_step
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 B, N, T, H = 2, 4, 3, 32
 LR = 1e-3
 
@@ -391,13 +403,10 @@ def test_trained_module_feeds_the_serving_engine():
     ],
 )
 def test_unported_model_configs_raise(cfg, match):
-    """remat raises until it is ported; the Graph WaveNet configs that
-    raised before the non-fused branches were ported build, load their
-    init_variables tree and give a finite train-mode forward."""
-    if match != "non-fused Graph WaveNet branches":
-        with pytest.raises(NotImplementedError, match=match):
-            build_model(cfg, T, N, H)
-        return
+    """The configs that raised before their ROADMAP item was ported (remat;
+    the non-fused Graph WaveNet branches) build, load their init_variables
+    tree and give a finite train-mode forward (remat against no remat:
+    tests/test_torch_port_accum_remat.py)."""
     cfg = dataclasses.replace(cfg, compute_dtype="float32")
     model = weights.load_variables(build_model(cfg, T, N, H),
                                    weights.init_variables(cfg, T, N, seed=0, image_size=H))
@@ -413,14 +422,16 @@ def test_unported_model_configs_raise(cfg, match):
      Config(model=ModelConfig(gwnet=GWNetConfig(randomadj=False)))],
 )
 def test_unported_train_knobs_raise(train):
-    """The knobs fit does not run yet (grad_accum, remat, a mesh) raise;
-    svd_aptinit (randomadj=False), which raised before the non-fused
-    Graph WaveNet branches were ported, is accepted (its nodevecs:
+    """The knob fit does not run yet (a mesh) raises; grad_accum (N and
+    auto) and remat, which raised before their ROADMAP item was ported
+    (tests/test_torch_port_accum_remat.py), and svd_aptinit
+    (randomadj=False), which raised before the non-fused Graph WaveNet
+    branches were ported, are accepted (its nodevecs:
     tests/test_torch_port_gwnet_branches.py); resume, tensorboard,
     profile_dir, debug_nans and d2v_bundle run
     (tests/test_torch_port_resume.py, tests/test_torch_port_run_options.py)."""
     cfg = train if isinstance(train, Config) else Config(train=train)
-    if not cfg.model.gwnet.randomadj:
+    if cfg.mesh == MeshConfig():
         loop.check_supported(cfg)
     else:
         with pytest.raises(NotImplementedError, match="ROADMAP"):

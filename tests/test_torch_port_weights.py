@@ -15,6 +15,17 @@ from multimodal_outage_tpu_torch import weights
 from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's small torch ops: with the
+    suite's workers sharing the cores, OpenMP's barriers otherwise stall
+    each op."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _flax_shapes(cfg, n, image_size, n_static):
     b, t = 1, 2
     x = jnp.zeros((b, n, t, image_size, image_size, 1))

@@ -20,7 +20,11 @@ and reference_view_quirk through kernel 3), trains with gradient
 accumulation and remat (phase 11: `train --grad_accum 2` at B=16, `train
 --grad_accum auto` at B=32, which must run out of memory one-shot and
 fall back to 2 microbatches, each remat scope at B=16, and float32
-accumulating and remat steps against the plain steps), and checks that
+accumulating and remat steps against the plain steps), runs the data path
+(phase 12: a 4.2 GB store past the device budget trained, evaluated and
+served through the host prefetch path, its batches and a float32 step
+bitwise the device path's, the transform hooks on every stream, and
+`ingest` / `ingest-monthly` on the card against the CPU), and checks that
 each path went through its kernels.
 
     python3 chip_smoke.py
@@ -130,6 +134,14 @@ ACCUM_RTOL, ACCUM_GRAD_RTOL = 1e-5, 1e-4
 # REMAT_RTOL, a few float32 ulps; any larger gap is a remat fault
 REMAT_RTOL = 1e-6
 LR = 1e-3
+# phase 12a: all three storms at ±160 days: 963 dates, 4,228 MB in
+# float32, past DataConfig's default device_store_budget_mb (4,096)
+BIG_MARGIN = 160
+# phase 12e: the raw tree's ±8 days around one storm (17 dates); ingest on
+# the card against ingest on the CPU: the same antialiased resize, summed
+# in another order
+INGEST_MARGIN = 8
+INGEST_ATOL, INGEST_RTOL = 1e-4, 1e-5
 
 
 def log(*a):
@@ -1677,6 +1689,449 @@ def accum_remat_end_to_end(torch, cli, mp, workdir, train_store):
     return out
 
 
+class _Raster:
+    """Stands in for the xarray DataArray of the reference's pickled daily
+    rasters (phase 12e): data["Gap_Filled_DNB_BRDF-Corrected_NTL"].values."""
+
+    def __init__(self, values):
+        self.values = values
+
+
+def _host_path_profile(torch, store, cases, steps=6):
+    """Phase 12a: on the host path at full width, bf16, B=8 with the pool
+    kernels: (a) the native gather of one batch's 8 × 14 frames into a
+    pinned buffer, host clock, and its H2D copy alone, CUDA events, each
+    the mean of 5 after one warm-up; (b) `steps` train steps fed by a
+    depth-2 PrefetchIterator after two warm-up steps: their CUDA-event wall
+    time per step and the profiler's device time of the kernels (both
+    streams) and of the H2D copies, per step."""
+    import numpy as np
+
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.config import (
+        DEFAULT_NTL_MEAN,
+        DEFAULT_NTL_STD,
+        ModelConfig,
+    )
+    from multimodal_outage_tpu_torch.data.adjacency import model_supports
+    from multimodal_outage_tpu_torch.data.dataset import WindowDataset
+    from multimodal_outage_tpu_torch.data.pipeline import PrefetchIterator
+    from multimodal_outage_tpu_torch.models.fusion import build_model
+    from multimodal_outage_tpu_torch.train.state import create_train_state
+    from multimodal_outage_tpu_torch.train.steps import make_train_step
+
+    ds = WindowDataset.from_case_study(store, cases, TRAIN_MARGIN, 7)
+    batches = [np.arange(8 * k, 8 * k + 8) % len(ds) for k in range(steps + 2)]
+    n = 8 * 14
+    pinned = torch.empty((n,) + store.frames.shape[1:], dtype=torch.float32, pin_memory=True)
+    dev = torch.empty_like(pinned, device="cuda")
+    gather_s = []
+    for b in batches[:6]:
+        t0 = time.perf_counter()
+        ds.gather_batch(b, out=pinned.numpy())
+        gather_s.append(time.perf_counter() - t0)
+    h2d = events_ms(lambda: dev.copy_(pinned, non_blocking=True), 5)
+    del dev
+    cfg = ModelConfig(pool="pallas")
+    sup = torch.from_numpy(model_supports(cfg, 67, store.county_names)).cuda()
+    model = weights.load_variables(build_model(cfg, 7, 67, 128),
+                                   weights.init_variables(cfg, 7, 67, seed=3)).cuda()
+    state, step = create_train_state(model), make_train_step(model)
+    it = iter(PrefetchIterator(ds, iter(batches), DEFAULT_NTL_MEAN, DEFAULT_NTL_STD, 128,
+                               torch.device("cuda"), depth=2))
+    for _ in range(2):
+        step(state, next(it), sup, LR, 0)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start.record()
+        for batch in it:
+            step(state, batch, sup, LR, 0)
+        end.record()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end) / steps
+    dev_events = [ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+    copy_ms = sum(ev.time_range.elapsed_us() / 1e3 for ev in dev_events
+                  if "Memcpy HtoD" in ev.name) / steps
+    busy = sum(ev.time_range.elapsed_us() / 1e3 for ev in dev_events
+               if "Memcpy" not in ev.name and "Memset" not in ev.name) / steps
+    if not busy or not copy_ms:
+        raise RuntimeError("phase 12a: the profiler caught no kernel or no H2D copy")
+    return {"gather_ms": 1e3 * sum(gather_s[1:]) / len(gather_s[1:]), "h2d_ms": h2d,
+            "batch_mb": pinned.numel() * 4 / 1e6, "step_ms": wall, "device_busy_ms": busy,
+            "device_busy_share": busy / wall, "h2d_in_step_ms": copy_ms}
+
+
+def data_path_end_to_end(torch, cli, dcm, gsm, mp, workdir, train_store, trained):
+    """Phase 12: the input paths and the ingest at full width, the launch
+    counters set to 0 just before each run and read just after.
+    (a) `synth --margin 160` (963 dates, 4,228 MB in float32, past the
+    default 4,096 MB budget): the default Config takes the host path for it
+    and the device path for phase 5's store; `train --pool pallas` on it at
+    phase 5's settings (its window counts), through the host path (a
+    PrefetchIterator per stream): pool launches (48, 20), the step p50
+    beside phase 5's, peak memory, and _host_path_profile. (b) float32 on
+    the same store, the device path forced (the store on the card): the
+    first 3 train batches of each path bitwise equal, the host path's from
+    a depth-2 prefetcher with a float32 train step between gets, and one
+    step from each path's first batch with a bitwise-equal loss and
+    gradients; in bf16 the host path's x is float32, the device path's
+    bf16. (c) `evaluate --pool pallas` of (a)'s checkpoint through the host
+    path: (a)'s test metrics exactly, 4 pool launches per batch; `serve
+    --checkpoint_path` B=8: (9f, f) launches, within SERVE_RTOL of
+    evaluate. (d) on phase 5's store, host path forced and device path: a
+    frame transform (the default, then ×2) gives equal float32 batches on
+    both paths; a counting transform runs once per batch on fit's train,
+    val and final streams, predict and serve_eval. (e) `ingest` of a raw
+    tree (67 counties × 17 dates around Michael, rasters of 90-260 ×
+    140-310 with fill sentinels, .npy and pickled; an 18th date one county
+    lacks) with --device cuda against --device cpu, then `ingest-monthly`
+    and the store's stats."""
+    import dataclasses
+    from contextlib import closing
+
+    import numpy as np
+
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.checkpoint import restore_variables
+    from multimodal_outage_tpu_torch.core.config import (
+        DEFAULT_NTL_MEAN,
+        DEFAULT_NTL_STD,
+        Config,
+        DataConfig,
+        ModelConfig,
+        TrainConfig,
+    )
+    from multimodal_outage_tpu_torch.core.registry import HURRICANES
+    from multimodal_outage_tpu_torch.data import pipeline
+    from multimodal_outage_tpu_torch.data.acquisition import NTL_VARIABLE
+    from multimodal_outage_tpu_torch.data.adjacency import config_supports, model_supports
+    from multimodal_outage_tpu_torch.data.stats import compute_mean_std
+    from multimodal_outage_tpu_torch.data.store import load_store
+    from multimodal_outage_tpu_torch.data.synthetic import generate_store
+    from multimodal_outage_tpu_torch.models.fusion import build_model
+    from multimodal_outage_tpu_torch.serving import ServingModel, serve_eval
+    from multimodal_outage_tpu_torch.train import loop
+    from multimodal_outage_tpu_torch.train.state import create_train_state
+    from multimodal_outage_tpu_torch.train.steps import make_train_step
+
+    cuda = torch.device("cuda")
+    out = {}
+    free = shutil.disk_usage(workdir).free
+    if free < 6e9:
+        raise RuntimeError(f"phase 12: {free / 1e9:.1f} GB free in {workdir}; the store needs "
+                           "4.2 GB and its copies")
+    torch.cuda.empty_cache()
+
+    # (a) a store past the budget, trained through the CLI's code path
+    big = os.path.join(workdir, "big_store")
+    t0 = time.perf_counter()
+    generate_store(big, n_counties=67, image_size=128, margin=BIG_MARGIN, seed=12)
+    store = load_store(big)
+    size_mb = store.frames.size * 4 / 1e6
+    small = load_store(train_store)
+    choice = (loop.pipeline_choice(Config(), store), loop.pipeline_choice(Config(), small))
+    log(f"phase 12a: synth --margin {BIG_MARGIN}: {store.n_dates} dates, {size_mb:.1f} MB "
+        f"float32 in {time.perf_counter() - t0:.1f} s; default Config (budget "
+        f"{DataConfig().device_store_budget_mb} MB) takes the {choice[0]} path for it and the "
+        f"{choice[1]} path for phase 5's store ({small.frames.size * 4 / 1e6:.1f} MB)")
+    if store.n_dates != 963 or choice != ("host", "device"):
+        raise RuntimeError(f"phase 12a: {store.n_dates} dates, paths {choice}")
+    made = []
+
+    class Counting(pipeline.PrefetchIterator):
+        def __init__(self, *a, **kw):
+            made.append(kw.get("depth"))
+            super().__init__(*a, **kw)
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    loop.PrefetchIterator = Counting
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        mp.max_pool_forward.launches = mp.max_pool_backward.launches = 0
+        t0 = time.perf_counter()
+        res = cli.run(["train", "--data_dir", big, "--case", "michael", "--dataset_range",
+                       str(TRAIN_MARGIN), "--epochs", "1", "--batch_size", "8", "--seed", "0",
+                       "--pool", "pallas", "--job_id", "big"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pool = (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        loop.PrefetchIterator = pipeline.PrefetchIterator
+        os.chdir(cwd)
+    steps, evals = res["train_steps"], res["eval_forwards"]
+    want = (4 * steps + 4 * evals, 4 * steps)
+    log(f"phase 12a: train on the {size_mb:.0f} MB store {json.dumps(res)}; {wall:.3f} s wall; "
+        f"{len(made)} prefetch iterators (depth {made[0] if made else None}: the train epoch, "
+        f"the val sweep, the final val and test sweeps); pool launches {pool}, expected {want} "
+        f"(phase 5: (48, 20)); step p50 {res['train_step_ms_p50']:.3f} ms (phase 5 "
+        f"{trained['train_step_ms_p50']:.3f} ms in this run); peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    if len(made) != 4 or pool != (48, 20) or pool != want:
+        raise RuntimeError(f"phase 12a: {len(made)} prefetch iterators, pool launches {pool}")
+    if (steps, evals) != (trained["train_steps"], trained["eval_forwards"]):
+        raise RuntimeError(f"phase 12a: {steps} steps, {evals} evals, not phase 5's")
+    finals = [v for k, v in res.items() if k.startswith(("val_", "test_"))]
+    if len(finals) != 8 or not all(math.isfinite(v) for v in finals):
+        raise RuntimeError(f"phase 12a: non-finite or missing final metrics {res}")
+    train_cases = {k: HURRICANES[k] for k in ("ian", "idalia")}
+    prof = _host_path_profile(torch, store, train_cases)
+    dev_busy = step_busy_share(torch, train_store)
+    log(f"phase 12a: host path B=8 bf16: gather {prof['gather_ms']:.3f} ms and H2D "
+        f"{prof['h2d_ms']:.3f} ms per {prof['batch_mb']:.1f} MB batch (timed apart); "
+        f"{json.dumps(prof)}; device path, phase 5's store, the same step: "
+        f"{json.dumps(dev_busy)}")
+    out["a"] = {"step_ms_p50": res["train_step_ms_p50"],
+                "phase5_step_ms_p50": trained["train_step_ms_p50"], "peak_gib": peak / 2**30,
+                "pool_launches": pool, **prof,
+                "device_path_busy_share": dev_busy["device_busy_share"]}
+
+    # (b) float32: host path against the device path on the same store
+    f32 = Config(data=DataConfig(data_dir=big, dataset_range=TRAIN_MARGIN,
+                                 device_dtype="float32", pipeline="host"),
+                 train=TrainConfig(batch_size=8, seed=0))
+    ds, train_idx, _, _ = loop.prepare_datasets(f32, "michael")
+    t0 = time.perf_counter()
+    on_card = loop.make_pipeline(dataclasses.replace(f32, data=dataclasses.replace(
+        f32.data, pipeline="device")), store, cuda)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    mcfg = ModelConfig(compute_dtype="float32", pool="pallas")
+    sup = torch.from_numpy(model_supports(mcfg, 67, store.county_names)).cuda()
+    var = weights.init_variables(mcfg, 7, 67, seed=3)
+
+    def fresh():
+        model = weights.load_variables(build_model(mcfg, 7, 67, 128), var).cuda()
+        return model, create_train_state(model), make_train_step(model)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        model, state, step = fresh()
+        host_it = loop._epoch_iter(ds, train_idx, f32, True, 0, None, cuda)
+        dev_it = loop._epoch_iter(ds, train_idx, f32, True, 0, on_card, cuda)
+        equal, firsts = [], None
+        for _ in range(3):
+            hb, db = next(host_it), next(dev_it)
+            step(state, hb, sup, LR, 0)  # kernels on the main stream between gets
+            equal.append(all(torch.equal(hb[k], db[k]) for k in ("x", "y", "date_feats")))
+            firsts = firsts or (hb, db)
+        host_it.close()
+        dev_it.close()
+        del model, state, step
+        grads = []
+        for batch in firsts:
+            model, state, step = fresh()
+            loss = float(step(state, batch, sup, LR, 0)["loss"])
+            grads.append((loss, {k: p.grad.clone() for k, p in model.named_parameters()
+                                 if p.grad is not None}))
+            del model, state, step
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lh, gh), (ld, gd) = grads
+    same_step = lh == ld and gh.keys() == gd.keys() and all(torch.equal(gh[k], gd[k]) for k in gh)
+    bf16 = dataclasses.replace(f32.data, device_dtype="bfloat16")
+    with closing(loop._epoch_iter(ds, train_idx, dataclasses.replace(f32, data=bf16), False, 0,
+                                  None, cuda)) as it:
+        host_x = next(it)["x"].dtype
+    small_pipe = loop.make_pipeline(Config(data=dataclasses.replace(
+        bf16, data_dir=train_store, pipeline="auto")), small, cuda)
+    small_ds = loop.prepare_datasets(Config(data=dataclasses.replace(
+        bf16, data_dir=train_store)), "michael")[0]
+    dev_x = small_pipe.batch(small_ds, np.arange(8))["x"].dtype
+    del small_pipe
+    log(f"phase 12b: float32, the {size_mb:.0f} MB store: device path upload "
+        f"{upload_s:.2f} s; first 3 train batches host == device (x, y, date_feats) {equal}; "
+        f"one step from each path's first batch: loss {lh!r} vs {ld!r}, every gradient "
+        f"bitwise equal {same_step}; bf16: host path x {host_x}, device path x {dev_x}")
+    del on_card, firsts, grads, hb, db
+    torch.cuda.empty_cache()
+    if not all(equal) or not same_step:
+        raise RuntimeError("phase 12b: the host path's batches or step differ from the "
+                           "device path's")
+    if (host_x, dev_x) != (torch.float32, torch.bfloat16):
+        raise RuntimeError(f"phase 12b: x dtypes {host_x} (host), {dev_x} (device)")
+    out["b"] = {"upload_s": upload_s, "batches_equal": equal, "step_equal": same_step}
+
+    # (c) (a)'s checkpoint read back through the host path
+    ckpt = os.path.join(workdir, "logs", "big", "checkpoints")
+    common = ["--checkpoint_path", ckpt, "--case", "michael", "--batch_size", "8",
+              "--dataset_range", str(TRAIN_MARGIN), "--data_dir", big]
+    mp.max_pool_forward.launches = mp.max_pool_backward.launches = 0
+    ev = cli.run(["evaluate", "--pool", "pallas", *common])
+    torch.cuda.synchronize()
+    pool, f = (mp.max_pool_forward.launches, mp.max_pool_backward.launches), ev["forwards"]
+    gap = max(abs(ev["metrics"][k] - res[f"test_{k}"]) / abs(res[f"test_{k}"]) for k in METRICS)
+    dcm.fused_double_conv.launches = gsm.gwnet_stack_forward.launches = 0
+    sv = cli.run(["serve", *common])
+    torch.cuda.synchronize()
+    grew, fs = (dcm.fused_double_conv.launches, gsm.gwnet_stack_forward.launches), sv["forwards"]
+    gaps = {k: abs(sv["metrics"][k] - ev["metrics"][k]) / abs(ev["metrics"][k])
+            for k in ("loss", "mae", "rmse")}
+    log(f"phase 12c: evaluate --pool pallas {json.dumps(ev)}; pool launches {pool}; gap to "
+        f"12a's test metrics {gap!r}; serve --checkpoint_path B=8 {json.dumps(sv)}; launches "
+        f"(double_conv, gwnet_stack) {grew}; gaps to evaluate {json.dumps(gaps)}")
+    if pool != (4 * f, 0) or gap != 0.0:
+        raise RuntimeError(f"phase 12c: evaluate launched {pool} in {f} forwards, gap {gap}")
+    if grew != (9 * fs, fs) or max(gaps.values()) > SERVE_RTOL:
+        raise RuntimeError(f"phase 12c: serve launched {grew} in {fs} forwards, gaps {gaps}")
+    out["c"] = {"evaluate_gap": gap, "evaluate_pool_launches": pool, "serve_launches": grew,
+                "serve_gaps": gaps}
+    shutil.rmtree(big)
+    shutil.rmtree(os.path.join(workdir, "logs", "big"))
+    del store
+
+    # (d) the hooks on phase 5's store, host path forced and device path
+    mean32 = torch.tensor(DEFAULT_NTL_MEAN, device=cuda)
+    std32 = torch.tensor(DEFAULT_NTL_STD, device=cuda)
+    default = lambda w: pipeline.default_frame_transform(w, mean32, std32, 128)  # noqa: E731
+    double = lambda w: 2.0 * default(w)  # noqa: E731
+    cfgs = {p: Config(data=DataConfig(data_dir=train_store, dataset_range=TRAIN_MARGIN,
+                                      device_dtype="float32", pipeline=p),
+                      train=TrainConfig(batch_size=8, seed=0, epochs=1))
+            for p in ("host", "device")}
+    ds, train_idx, _, _ = loop.prepare_datasets(cfgs["host"], "michael")
+    same = {}
+    for name, tf in (("default", default), ("x2", double)):
+        its = [loop._epoch_iter(ds, train_idx, cfg, True, 0,
+                                loop.make_pipeline(cfg, small, cuda, tf), cuda,
+                                frame_transform=tf) for cfg in cfgs.values()]
+        pairs = list(zip(*its))
+        same[name] = len(pairs) == -(-len(train_idx) // 8) and all(
+            torch.equal(h[k], d[k]) for h, d in pairs for k in ("x", "y", "date_feats"))
+        del pairs, its
+    calls, want_calls = {}, {}
+
+    def spy(name):
+        def hook(batch):
+            calls[name] = calls.get(name, 0) + 1
+            return batch
+        return hook
+
+    for p, cfg in cfgs.items():  # bf16, the pool kernels, fit → predict → serve_eval
+        cfg = dataclasses.replace(cfg, model=ModelConfig(pool="pallas"), data=dataclasses.replace(
+            cfg.data, device_dtype="bfloat16"))
+        run_dir = os.path.join(workdir, "logs", f"hooks_{p}")
+        fitted = loop.fit(cfg, "michael", run_dir=run_dir, progress=False, device=cuda,
+                          transform=spy(f"{p} fit"))
+        ckpt = os.path.join(run_dir, "checkpoints")
+        preds, _, _ = loop.predict(cfg, ckpt, "michael", device=cuda,
+                                   transform=spy(f"{p} predict"))
+        engine = ServingModel(cfg.model, restore_variables(ckpt), config_supports(cfg, small),
+                              horizon=7, device=cuda)
+        _, _, fwd = serve_eval(cfg.data, engine, small, "michael", 8,
+                               transform=spy(f"{p} serve_eval"))
+        # fit's eval_forwards counts its val, final val and test batches
+        want_calls.update({f"{p} fit": fitted["train_steps"] + fitted["eval_forwards"],
+                           f"{p} predict": -(-len(preds) // 8), f"{p} serve_eval": fwd})
+        shutil.rmtree(run_dir)
+    log(f"phase 12d: frame transform, host path == device path (float32, {len(train_idx)} "
+        f"train windows): {json.dumps(same)}; counting transform calls "
+        f"{json.dumps(calls)}, batches {json.dumps(want_calls)}")
+    if not all(same.values()) or calls != want_calls:
+        raise RuntimeError(f"phase 12d: transforms {same}, calls {calls} vs {want_calls}")
+    out["d"] = {"frame_transform_equal": same, "transform_calls": calls}
+
+    # (e) ingest at full width
+    out["e"] = ingest_end_to_end(torch, cli, workdir, _Raster, NTL_VARIABLE, compute_mean_std)
+    return out
+
+
+def ingest_end_to_end(torch, cli, workdir, raster_cls, variable, compute_mean_std):
+    """Phase 12e: a raw tree of 67 counties × the 17 dates of ±8 days
+    around Michael, each county's rasters of one shape drawn from 90-260 ×
+    140-310 (as each county keeps its bbox), 1% of pixels the fill
+    sentinel, every tenth county pickled as the reference stores them, and
+    an 18th date that one county lacks; `ingest --device cuda` against
+    `ingest --device cpu` (the same dates and counties, frames within
+    INGEST_ATOL / INGEST_RTOL), wall seconds and frames per second; then
+    `ingest-monthly --device cuda` of three monthly composites and the
+    store's normalization statistics."""
+    import datetime
+    import pickle
+
+    import numpy as np
+
+    from multimodal_outage_tpu_torch.core.config import NTL_FILL_SENTINEL
+    from multimodal_outage_tpu_torch.core.registry import HURRICANES
+    from multimodal_outage_tpu_torch.data.store import load_store
+
+    raw = os.path.join(workdir, "raw")
+    storm = HURRICANES["michael"]
+    days = [storm + datetime.timedelta(days=i) for i in range(-INGEST_MARGIN, INGEST_MARGIN + 2)]
+    counties = [f"county_{i:02d}" for i in range(67)]
+    rng = np.random.default_rng(21)
+
+    def raster(shape):
+        arr = rng.gamma(2.0, 8.0, shape).astype(np.float32)
+        arr.reshape(-1)[rng.choice(arr.size, arr.size // 100, replace=False)] = NTL_FILL_SENTINEL
+        return arr
+
+    t0 = time.perf_counter()
+    raw_bytes = 0
+    for ci, county in enumerate(counties):
+        cdir = os.path.join(raw, county)
+        os.makedirs(cdir)
+        shape = (int(rng.integers(90, 261)), int(rng.integers(140, 311)))
+        for d in days[:-1] if ci == 5 else days:
+            arr = raster(shape)
+            raw_bytes += arr.nbytes
+            stem = os.path.join(cdir, f"{d.year}_{d.month}_{d.day}")
+            if ci % 10 == 3:
+                with open(stem + ".pickle", "wb") as f:
+                    pickle.dump({variable: raster_cls(arr)}, f)
+            else:
+                np.save(stem + ".npy", arr)
+        for m in (6, 7, 8):
+            np.save(os.path.join(cdir, f"monthly_{storm.year}_{m}.npy"), raster(shape))
+    log(f"phase 12e: raw tree of {len(counties)} counties × {len(days)} dates (one county "
+        f"lacks the last), {raw_bytes / 1e6:.1f} MB of rasters, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        out_dir = os.path.join(workdir, f"ingested_{dev}")
+        t0 = time.perf_counter()
+        res = cli.run(["ingest", "--raw_dir", raw, "--out_dir", out_dir, "--device", dev])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[dev] = {"result": res, "wall_s": wall,
+                     "frames_per_s": res["frames"][0] * res["frames"][1] / wall}
+        log(f"phase 12e: ingest --device {dev} {json.dumps(res)}; {wall:.3f} s wall, "
+            f"{runs[dev]['frames_per_s']:.1f} frames/s")
+    a, b = (load_store(os.path.join(workdir, f"ingested_{d}")) for d in ("cuda", "cpu"))
+    want_dates = [(d.year, d.month, d.day) for d in days[:-1]]
+    err = float(np.abs(np.asarray(a.frames) - np.asarray(b.frames)).max())
+    ok = (a.dates.tolist() == [list(d) for d in want_dates] and a.dates.tolist() == b.dates.tolist()
+          and a.county_names == b.county_names == counties
+          and np.allclose(a.frames, b.frames, atol=INGEST_ATOL, rtol=INGEST_RTOL)
+          and float(np.asarray(a.frames).max()) < 1000)
+    log(f"phase 12e: cuda vs cpu: {a.n_dates} dates, {a.n_counties} counties, frames "
+        f"{a.frames.shape}, max |diff| {err!r} (atol {INGEST_ATOL}, rtol {INGEST_RTOL}), "
+        f"largest value {float(np.asarray(a.frames).max())!r}; ok {ok}")
+    if not ok:
+        raise RuntimeError("phase 12e: ingest on the card differs from ingest on the CPU")
+    store_dir = os.path.join(workdir, "ingested_cuda")
+    t0 = time.perf_counter()
+    mres = cli.run(["ingest-monthly", "--raw_dir", raw, "--store_dir", store_dir,
+                    "--device", "cuda"])
+    torch.cuda.synchronize()
+    mwall = time.perf_counter() - t0
+    store = load_store(store_dir)
+    mean, std = compute_mean_std(store, {"michael": storm}, dataset_range=INGEST_MARGIN)
+    log(f"phase 12e: ingest-monthly --device cuda {json.dumps(mres)}; {mwall:.3f} s; stats over "
+        f"Michael ±{INGEST_MARGIN} {json.dumps({'mean': mean, 'std': std})}")
+    if (store.monthly.shape != (3, 67, 128, 128) or not math.isfinite(mean) or not std > 0
+            or float(store.monthly.max()) >= 1000):
+        raise RuntimeError(f"phase 12e: monthly {store.monthly.shape}, stats {mean}, {std}")
+    for d in ("raw", "ingested_cuda", "ingested_cpu"):
+        shutil.rmtree(os.path.join(workdir, d))
+    return {"cuda": {k: v for k, v in runs["cuda"].items() if k != "result"},
+            "cpu": {k: v for k, v in runs["cpu"].items() if k != "result"},
+            "max_abs_diff": err, "monthly_s": mwall, "stats": [mean, std]}
+
+
 def by_supports(rows, b):
     """Phase 9c's S = 1 and S = 3 rows of a kernel for the kernels line:
     each S's largest error over both dtypes and its bf16 time at batch b
@@ -1781,6 +2236,8 @@ def main() -> int:
         log(f"phase 10: {json.dumps(p10)}")
         p11 = accum_remat_end_to_end(torch, cli, mp, workdir, train_store)
         log(f"phase 11: {json.dumps(p11)}")
+        p12 = data_path_end_to_end(torch, cli, dcm, gsm, mp, workdir, train_store, trained)
+        log(f"phase 12: {json.dumps(p12)}")
 
     main_dc = [r for r in dc_rows if r["dtype"] == "bfloat16"]
     main_st = [r for r in st_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]
@@ -1792,6 +2249,7 @@ def main() -> int:
             "source": "multimodal_outage_tpu_torch/csrc/double_conv.cu",
             "replaces": "multimodal_outage_tpu/ops/unet_pallas.py:119",
             "launches": launches["double_conv"],
+            "launches_phase12": p12["c"]["serve_launches"][0],  # 12c: serve from the host path
             "max_abs_err": max(r["max_abs_err"] for r in main_dc),
             "ms": sum(r["ms"] for r in main_dc),
             "plain_ms": sum(r["plain_ms"] for r in main_dc),
@@ -1804,6 +2262,7 @@ def main() -> int:
             "source": "multimodal_outage_tpu_torch/csrc/gwnet_stack.cu",
             "replaces": "multimodal_outage_tpu/ops/gwnet_stack_pallas.py:200",
             "launches": launches["gwnet_stack"],
+            "launches_phase12": p12["c"]["serve_launches"][1],
             "max_abs_err": main_st["max_abs_err"], "ms": main_st["ms"],
             "plain_ms": main_st["plain_ms"], "bound_ms": main_st["bound_ms"],
             "bound_by": main_st["bound_by"], "library_ms": None,
@@ -1819,6 +2278,9 @@ def main() -> int:
             "launches": pool_launches[i],
             # phase 11's runs: (a) grad_accum 2, (e) remat stem, (c) auto at B=32
             "launches_phase11": {k: p11[k]["pool_launches"][i] for k in ("a", "e", "c")},
+            # phase 12: (a) train and (c) evaluate through the host path
+            "launches_phase12": {"a": p12["a"]["pool_launches"][i],
+                                 "c": p12["c"]["evaluate_pool_launches"][i]},
             "max_abs_err": max(r["max_abs_err"] for r in mp_rows if r["kernel"] == name),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

@@ -15,11 +15,16 @@
              and write predictions, risk maps and rasters on request
   pretrain-d2v — pretrain a Date2Vec bundle (.npz, the JAX package's
              names) for --d2v_bundle, print {"out", "final_loss"}
+  ingest   — pack a {county}/{Y_m_d}.npy|pickle tree of raw rasters into
+             a store (data/acquisition.py)
+  ingest-monthly — attach a {county}/monthly_{Y}_{M}.npy tree to a store
+             as its risk-map baseline sidecar
 
-serve, train, evaluate and pretrain-d2v run on the card unless --device
-cpu is given; without a card they raise rather than falling back. Every
-command prints one JSON object as its last line; train --num_runs N > 1
-prints {"runs": [<run 0's results>, ...]}.
+serve, train, evaluate, pretrain-d2v, ingest and ingest-monthly run on
+the card unless --device cpu is given; without a card they raise rather
+than falling back. Every command prints one JSON object as its last
+line; train --num_runs N > 1 prints {"runs": [<run 0's results>, ...]};
+ingest and ingest-monthly print the JAX CLI's line before it.
 """
 
 from __future__ import annotations
@@ -131,6 +136,23 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=2000)
     p.add_argument("--device", type=str, default=None, choices=("cuda", "cpu"),
                    help="default: cuda (raises if there is no card)")
+
+    p = sub.add_parser("ingest", help="Pack per-county/day raw files into the store layout")
+    p.add_argument("--raw_dir", type=str, required=True)
+    p.add_argument("--out_dir", type=str, required=True)
+    p.add_argument("--image_size", type=int, default=128)
+    p.add_argument("--device", type=str, default=None, choices=("cuda", "cpu"),
+                   help="where the rasters are resized; default: cuda (raises if there "
+                   "is no card)")
+
+    p = sub.add_parser("ingest-monthly", help="Attach {county}/monthly_Y_M.npy composites "
+                       "to an existing store as the risk-map baseline sidecar")
+    p.add_argument("--raw_dir", type=str, required=True)
+    p.add_argument("--store_dir", type=str, required=True)
+    p.add_argument("--image_size", type=int, default=128)
+    p.add_argument("--device", type=str, default=None, choices=("cuda", "cpu"),
+                   help="where the rasters are resized; default: cuda (raises if there "
+                   "is no card)")
     return parser
 
 
@@ -416,6 +438,30 @@ def pretrain_d2v_command(args: argparse.Namespace) -> Dict[str, Any]:
     return {"out": args.out, "final_loss": loss}
 
 
+def ingest_command(args: argparse.Namespace) -> Dict[str, Any]:
+    """Run `ingest` (JAX cli.py:551-557): prints its line, returns
+    {"out_dir", "frames", "dates"}."""
+    from multimodal_outage_tpu_torch.data.acquisition import ingest_directory
+
+    frames, dates = ingest_directory(args.raw_dir, args.out_dir, image_size=args.image_size,
+                                     device=args.device)
+    print(f"packed {args.out_dir}: frames {frames.shape}, {dates.shape[0]} dates")
+    return {"out_dir": args.out_dir, "frames": list(frames.shape), "dates": int(dates.shape[0])}
+
+
+def ingest_monthly_command(args: argparse.Namespace) -> Dict[str, Any]:
+    """Run `ingest-monthly` (JAX cli.py:559-573): prints its line,
+    returns {"store_dir", "monthly", "months"}."""
+    from multimodal_outage_tpu_torch.data.acquisition import ingest_monthly_directory
+
+    monthly, months = ingest_monthly_directory(args.raw_dir, args.store_dir,
+                                               image_size=args.image_size, device=args.device)
+    print(f"attached monthly sidecar to {args.store_dir}: "
+          f"{monthly.shape} over months {months.tolist()}")
+    return {"store_dir": args.store_dir, "monthly": list(monthly.shape),
+            "months": months.tolist()}
+
+
 def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Parse and run one command; returns what main prints."""
     args = _parser().parse_args(argv)
@@ -440,7 +486,8 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         mean, std = compute_mean_std(load_store(args.data_dir), dataset_range=args.dataset_range)
         return {"mean": mean, "std": std}
     return {"serve": serve_command, "train": train_command, "evaluate": evaluate_command,
-            "pretrain-d2v": pretrain_d2v_command}[args.command](args)
+            "pretrain-d2v": pretrain_d2v_command, "ingest": ingest_command,
+            "ingest-monthly": ingest_monthly_command}[args.command](args)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

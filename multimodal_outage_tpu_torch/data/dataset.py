@@ -6,18 +6,21 @@ utils.py:13-105):
   past   = frames[i : i+horizon]
   future = frames[i+horizon : i+2·horizon]
   date features from the PAST window's dates.
-Frames are never touched here: the device pipeline (pipeline.py) gathers
-them on the card from the positions this class computes.
+The device pipeline (pipeline.py DevicePipeline) gathers frames on the
+card from the positions this class computes; the host path gathers them
+here (gather_batch, through the threaded native gather of native.py) for
+pipeline.py PrefetchIterator to copy to the card.
 """
 
 from __future__ import annotations
 
 import datetime
 from dataclasses import dataclass
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
+from multimodal_outage_tpu_torch.data.native import gather_frames
 from multimodal_outage_tpu_torch.data.store import NTLStore
 
 
@@ -88,6 +91,27 @@ class WindowDataset:
         pos = self.window_positions(batch_idx)[:, : self.horizon]
         dates = self.store.dates[pos.reshape(-1)]
         return date_features(dates).reshape(len(batch_idx), self.horizon, 6)
+
+    def gather_batch(
+        self, batch_idx: np.ndarray, out: Optional[np.ndarray] = None
+    ) -> Dict[str, np.ndarray]:
+        """Host batch assembly (JAX data/dataset.py:117-137): past
+        [B, T, N, H, W] and future [B, T, N, H, W] float32 raw radiance,
+        date_feats [B, T, 6] float32 (the past window's Date2Vec inputs).
+
+        Each sample's 2·T frames are copied from the store in one native
+        gather, into `out` when given: a float32 C-contiguous
+        [B·2T, N, H, W] buffer (the prefetcher's pinned buffer), which
+        past and future are then views of."""
+        h = self.horizon
+        batch_idx = np.asarray(batch_idx, dtype=np.int64)
+        store_pos = self.window_positions(batch_idx)  # [B, 2h]
+        frames = gather_frames(self.store.frames, store_pos.reshape(-1), out=out)
+        b = batch_idx.shape[0]
+        frames = frames.reshape((b, 2 * h) + frames.shape[1:])
+        dates = self.store.dates[store_pos[:, :h].reshape(-1)]
+        feats = date_features(dates).reshape(b, h, 6)
+        return {"past": frames[:, :h], "future": frames[:, h:], "date_feats": feats}
 
 
 def train_val_split(n: int, val_fraction: float, seed: int) -> Tuple[np.ndarray, np.ndarray]:

@@ -315,6 +315,8 @@ def serve_eval(
     max_batches: Optional[int] = None,
     latency_stats: bool = False,
     collect_preds: Optional[List[np.ndarray]] = None,
+    transform=None,
+    frame_transform=None,
 ) -> Tuple[Dict[str, float], Dict[str, float], int]:
     """Sweep the held-out hurricane through the engine, as the JAX
     package's train/loop.py serve_eval does. Returns (metrics, latency,
@@ -322,9 +324,19 @@ def serve_eval(
     latency_stats) has p50/p90 per-request ms over up to six full-size
     batches; forwards counts every engine call made here. Each swept
     batch's prediction is appended to collect_preds, when given, as a
-    host array."""
-    from multimodal_outage_tpu_torch.data.dataset import WindowDataset, batch_indices
-    from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline
+    host array.
+
+    Batches come through train/loop.py make_pipeline and _epoch_iter, so
+    a store past data_cfg.device_store_budget_mb streams through the host
+    path, and transform / frame_transform reach every batch as in fit
+    (JAX train/loop.py:773-860). The batches kept for the latency
+    requests are device tensors from either path."""
+    from contextlib import closing
+    from itertools import islice
+
+    from multimodal_outage_tpu_torch.core.config import Config, TrainConfig
+    from multimodal_outage_tpu_torch.data.dataset import WindowDataset
+    from multimodal_outage_tpu_torch.train.loop import _epoch_iter, make_pipeline
 
     _, test_cases = leave_one_out(test_case)
     test_ds = WindowDataset.from_case_study(
@@ -335,26 +347,24 @@ def serve_eval(
             f"no test windows for {test_case!r} at dataset_range "
             f"{data_cfg.dataset_range} and horizon {data_cfg.horizon}"
         )
-    # frames in DataConfig.device_dtype, as the JAX serve_eval and the
-    # port's fit hold them; the engine casts them to its compute dtype
-    pipe = DevicePipeline(
-        store, data_cfg.mean, data_cfg.std, data_cfg.image_size,
-        getattr(torch, data_cfg.device_dtype), serve.device,
-    )
+    # frames in DataConfig.device_dtype on the device path, as the JAX
+    # serve_eval and the port's fit hold them (float32 on the host path);
+    # the engine casts them to its compute dtype
+    cfg = Config(data=data_cfg, train=TrainConfig(batch_size=batch_size))
+    pipe = make_pipeline(cfg, store, serve.device, frame_transform)
     agg = MeanAggregator()
     timed: List[Dict[str, torch.Tensor]] = []
     forwards = 0
-    for k, idx in enumerate(batch_indices(len(test_ds), batch_size)):
-        if max_batches is not None and k >= max_batches:
-            break
-        batch = pipe.batch(test_ds, idx)
-        yhat = serve(batch["x"], batch["date_feats"])
-        forwards += 1
-        agg.update(regression_metrics(yhat, batch["y"]))
-        if collect_preds is not None:
-            collect_preds.append(yhat.cpu().numpy())
-        if len(timed) < 6 and len(idx) == batch_size:
-            timed.append(batch)
+    with closing(_epoch_iter(test_ds, np.arange(len(test_ds)), cfg, False, 0, pipe,
+                             serve.device, transform, frame_transform)) as batches:
+        for batch in islice(batches, max_batches):
+            yhat = serve(batch["x"], batch["date_feats"])
+            forwards += 1
+            agg.update(regression_metrics(yhat, batch["y"]))
+            if collect_preds is not None:
+                collect_preds.append(yhat.cpu().numpy())
+            if len(timed) < 6 and batch["x"].shape[0] == batch_size:
+                timed.append(batch)
     latency: Dict[str, float] = {}
     if latency_stats and timed:
         times = time_requests(serve, timed)

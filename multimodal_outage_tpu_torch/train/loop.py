@@ -23,9 +23,19 @@ one-shot and, when a step runs out of device memory, retries it with the
 next split count that divides the batch. Remat is the model's
 (ModelConfig.remat, models/unet.py).
 
+Batches come from one of two input paths, chosen by make_pipeline as
+the JAX loop chooses (train/loop.py:155-190): the device pipeline
+(data/pipeline.py DevicePipeline, the whole float32 store on the card)
+with DataConfig.pipeline "device" or when the store fits
+device_store_budget_mb, else the host path (PrefetchIterator: a native
+gather from the memmap into pinned buffers, copied and preprocessed on a
+side stream, DataConfig.prefetch batches ahead). Every stream of fit,
+evaluate and predict goes through _epoch_iter, which applies the two
+hooks of the reference dataset's transform slot (utils.py:14,35-38):
+`transform` (dict→dict on the device batch, after the built-ins) and
+`frame_transform` (in place of the built-in Resize + Normalize).
+
 Not here yet (check_supported raises): mesh/SPMD with sample_weight.
-The batch transform hooks are not ported. Batches come from the device
-pipeline (data/pipeline.py); the host prefetch path is not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import gc
 import os
 import sys
 import time
+from contextlib import closing
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -56,7 +67,7 @@ from multimodal_outage_tpu_torch.data.dataset import (
     batch_indices,
     train_val_split,
 )
-from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline
+from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline, PrefetchIterator
 from multimodal_outage_tpu_torch.data.store import load_store
 from multimodal_outage_tpu_torch.models.fusion import build_model
 from multimodal_outage_tpu_torch.models.gwnet import install_aptinit
@@ -212,25 +223,80 @@ def prepare_datasets(
     return ds, train_idx, val_idx, test_ds
 
 
-def _epoch_iter(ds, idx, cfg: Config, shuffle: bool, seed: int, device_pipe: DevicePipeline):
-    for b in batch_indices(len(idx), cfg.train.batch_size, shuffle, seed):
-        yield device_pipe.batch(ds, idx[b])
+PIPELINES = ("auto", "device", "host")
+
+
+def pipeline_choice(cfg: Config, store) -> str:
+    """"device" or "host", as JAX make_pipeline picks on one device
+    (train/loop.py:155-190): "host" when asked; "device" when asked or
+    when the float32 store's megabytes (bytes / 1e6) fit
+    device_store_budget_mb; else "host". Any other value raises."""
+    choice = cfg.data.pipeline
+    if choice not in PIPELINES:
+        raise ValueError(f"DataConfig.pipeline must be one of {PIPELINES}, got {choice!r}")
+    if choice == "host":
+        return "host"
+    size_mb = store.frames.size * 4 / 1e6
+    if choice == "device" or size_mb <= cfg.data.device_store_budget_mb:
+        return "device"
+    return "host"
+
+
+def make_pipeline(cfg: Config, store, device, frame_transform=None) -> Optional[DevicePipeline]:
+    """The DevicePipeline of the store on `device` when pipeline_choice
+    says "device", else None: _epoch_iter then streams batches through
+    the host path. frame_transform ([B,N,T,H,W] float32 → [B,N,T,s,s,C])
+    replaces the built-in Resize + Normalize on either path."""
+    if pipeline_choice(cfg, store) == "host":
+        return None
+    return DevicePipeline(store, cfg.data.mean, cfg.data.std, cfg.data.image_size,
+                          getattr(torch, cfg.data.device_dtype), device,
+                          frame_transform=frame_transform)
+
+
+def _epoch_iter(ds, idx, cfg: Config, shuffle: bool, seed: int, device_pipe, device,
+                transform=None, frame_transform=None):
+    """Every batch stream of fit, evaluate, predict and serve_eval (JAX
+    train/loop.py:193-251, its single-device branches): the windows
+    idx[b] for each index batch of batch_indices, from the device
+    pipeline, or from a PrefetchIterator (depth cfg.data.prefetch) when
+    device_pipe is None, with frame_transform in place of the built-in
+    Resize + Normalize. transform, when given, maps each device batch
+    dict→dict after the built-ins. Closing the generator stops the
+    prefetch thread."""
+    batches = (idx[b] for b in batch_indices(len(idx), cfg.train.batch_size, shuffle, seed))
+    if device_pipe is not None:
+        source = (device_pipe.batch(ds, b) for b in batches)
+    else:
+        source = iter(PrefetchIterator(
+            ds, batches, cfg.data.mean, cfg.data.std, cfg.data.image_size, device,
+            depth=cfg.data.prefetch, frame_transform=frame_transform,
+        ))
+    try:
+        for batch in source:
+            yield batch if transform is None else transform(batch)
+    finally:
+        source.close()
 
 
 def evaluate(
     predict_step, ds, idx, cfg: Config, supports, device_pipe,
     collect: Optional[Tuple[List[np.ndarray], List[np.ndarray]]] = None,
+    transform=None, frame_transform=None,
 ) -> Dict[str, float]:
     """Mean of per-batch metrics (reference lit.py:100-106), each from the
     batch's one eval forward. With collect=(preds, targets), each batch's
-    prediction and target are also appended there as host arrays."""
+    prediction and target are also appended there as host arrays. Batches
+    come from _epoch_iter on the supports' device."""
     agg = MeanAggregator()
-    for batch in _epoch_iter(ds, idx, cfg, shuffle=False, seed=0, device_pipe=device_pipe):
-        yhat = predict_step(batch, supports)
-        agg.update(regression_metrics(yhat, batch["y"]))
-        if collect is not None:
-            collect[0].append(yhat.cpu().numpy())
-            collect[1].append(batch["y"].cpu().numpy())
+    with closing(_epoch_iter(ds, idx, cfg, False, 0, device_pipe, supports.device,
+                             transform, frame_transform)) as batches:
+        for batch in batches:
+            yhat = predict_step(batch, supports)
+            agg.update(regression_metrics(yhat, batch["y"]))
+            if collect is not None:
+                collect[0].append(yhat.cpu().numpy())
+                collect[1].append(batch["y"].cpu().numpy())
     return agg.compute()
 
 
@@ -310,6 +376,8 @@ def fit(
     run_dir: Optional[str] = None,
     progress: bool = True,
     device=None,
+    transform=None,
+    frame_transform=None,
 ) -> Dict[str, float]:
     """Train with early stopping; returns the best model's val and test
     metrics, plus the run's counts and, on the card, train_step_ms_p50:
@@ -325,7 +393,13 @@ def fit(
     are functions of (seed, global step) and the batch order of seed +
     epoch, so a resumed run repeats the uninterrupted one. The train
     rows' "step" and the profiling window count this process's steps
-    (JAX train/loop.py:602, 637-667)."""
+    (JAX train/loop.py:602, 637-667).
+
+    transform (dict→dict on each device batch, after the built-ins) and
+    frame_transform ([B,N,T,H,W] float32 → [B,N,T,s,s,C], in place of
+    the built-in Resize + Normalize) reach every batch of the train
+    loop, the val sweeps and the final val and test sweeps (JAX
+    train/loop.py:407-424)."""
     leave_one_out(test_case)  # fail fast on bad flags before any work
     check_supported(cfg)
     dev = resolve_device(device)
@@ -351,8 +425,8 @@ def fit(
     if cfg.train.grad_accum != 1:
         train_step = _grad_accum_step(cfg, model, train_step)
     predict_step = make_predict_step(model)
-    pipe = DevicePipeline(store, cfg.data.mean, cfg.data.std, size,
-                          getattr(torch, cfg.data.device_dtype), dev)
+    pipe = make_pipeline(cfg, store, dev, frame_transform)
+    hooks = (transform, frame_transform)
 
     best_val, best_epoch, bad_epochs, start_epoch = float("inf"), -1, 0, 0
     if cfg.train.resume and ckpt.latest_step() is not None:
@@ -378,29 +452,31 @@ def fit(
             t0 = time.time()
             metric_sum: Dict[str, torch.Tensor] = {}
             metric_count = 0
-            for batch in _epoch_iter(ds, train_idx, cfg, True, cfg.train.seed + epoch, pipe):
-                trace.before_step(step_count)
-                if dev.type == "cuda":
-                    ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
-                    ev[0].record()
-                metrics = train_step(state, batch, supports, lr, cfg.train.seed)
-                if dev.type == "cuda":
-                    ev[1].record()
-                    step_events.append(ev)
-                step_count += 1
-                trace.after_step(step_count)
-                if step_count % cfg.train.log_every == 0:
-                    logger.log({
-                        "phase": "train", "epoch": epoch, "step": step_count, "lr": lr,
-                        **{f"train_{k}": float(v) for k, v in metrics.items()},
-                        **device_memory_stats(dev),
-                    })
-                # accumulated on the device: no host sync per step
-                metric_sum = {k: metric_sum.get(k, 0) + v for k, v in metrics.items()}
-                metric_count += 1
+            with closing(_epoch_iter(ds, train_idx, cfg, True, cfg.train.seed + epoch, pipe,
+                                     dev, *hooks)) as batches:
+                for batch in batches:
+                    trace.before_step(step_count)
+                    if dev.type == "cuda":
+                        ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(2))
+                        ev[0].record()
+                    metrics = train_step(state, batch, supports, lr, cfg.train.seed)
+                    if dev.type == "cuda":
+                        ev[1].record()
+                        step_events.append(ev)
+                    step_count += 1
+                    trace.after_step(step_count)
+                    if step_count % cfg.train.log_every == 0:
+                        logger.log({
+                            "phase": "train", "epoch": epoch, "step": step_count, "lr": lr,
+                            **{f"train_{k}": float(v) for k, v in metrics.items()},
+                            **device_memory_stats(dev),
+                        })
+                    # accumulated on the device: no host sync per step
+                    metric_sum = {k: metric_sum.get(k, 0) + v for k, v in metrics.items()}
+                    metric_count += 1
             train_metrics = {k: float(v) / metric_count for k, v in metric_sum.items()}
 
-            val_metrics = evaluate(predict_step, ds, val_idx, cfg, supports, pipe)
+            val_metrics = evaluate(predict_step, ds, val_idx, cfg, supports, pipe, None, *hooks)
             eval_forwards += n_eval(len(val_idx))
             dt = time.time() - t0
             tiles = len(train_idx) * store.n_counties * horizon
@@ -426,8 +502,9 @@ def fit(
     # the best checkpoint, swept over val and the held-out hurricane
     # (reference PrintMetricsCallback / TestBestModelCallback, lit.py:74-140)
     load_variables(model, ckpt.restore())
-    final_val = evaluate(predict_step, ds, val_idx, cfg, supports, pipe)
-    final_test = evaluate(predict_step, test_ds, np.arange(len(test_ds)), cfg, supports, pipe)
+    final_val = evaluate(predict_step, ds, val_idx, cfg, supports, pipe, None, *hooks)
+    final_test = evaluate(predict_step, test_ds, np.arange(len(test_ds)), cfg, supports, pipe,
+                          None, *hooks)
     eval_forwards += n_eval(len(val_idx)) + n_eval(len(test_ds))
     results: Dict[str, float] = {
         "best_epoch": best_epoch,
@@ -458,13 +535,16 @@ def predict(
     test_case: str,
     step: Optional[int] = None,
     device=None,
+    transform=None,
+    frame_transform=None,
 ) -> Tuple[np.ndarray, np.ndarray, Dict[str, float]]:
     """Sweep the held-out hurricane with a checkpoint (JAX train/loop.py:
     901-1010, its single-device branch; reference tlit.py:46-94): the best
     step's (or `step`'s) params and batch_stats, the test windows in
     order at cfg.train.batch_size, through the sweep fit's final test
     sweep runs. Returns (preds, targets, metrics): float32 [S, N, T, H, W,
-    1] arrays and the mean of per-batch metrics."""
+    1] arrays and the mean of per-batch metrics. transform and
+    frame_transform reach every batch, as in fit."""
     require_checkpoints(checkpoint_dir)  # before any other work
     check_supported(cfg)
     dev = resolve_device(device)
@@ -481,10 +561,9 @@ def predict(
     model = build_model(cfg.model, horizon, store.n_counties, size)
     load_variables(model, restore_variables(checkpoint_dir, step))
     model.to(dev)
-    pipe = DevicePipeline(store, cfg.data.mean, cfg.data.std, size,
-                          getattr(torch, cfg.data.device_dtype), dev)
+    pipe = make_pipeline(cfg, store, dev, frame_transform)
     preds: List[np.ndarray] = []
     targets: List[np.ndarray] = []
     metrics = evaluate(make_predict_step(model), test_ds, np.arange(len(test_ds)), cfg,
-                       supports, pipe, collect=(preds, targets))
+                       supports, pipe, (preds, targets), transform, frame_transform)
     return np.concatenate(preds), np.concatenate(targets), metrics

@@ -12,9 +12,9 @@ from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from multimodal_outage_tpu_torch.core.registry import RISK_MONTHS
+from multimodal_outage_tpu_torch.data.pipeline import resize_bilinear
 
 # Default spotlight counties (reference utils.py:205,313: indices 2, 34, 36
 # of the alphabetically sorted county list).
@@ -56,13 +56,10 @@ def average_baseline_ntl(
 def _resize_bilinear(arr: np.ndarray, size: int) -> np.ndarray:
     """[H, W] → [size, size] bilinear (the reference's torchvision
     Resize((128,128)) role, utils.py:273-277), antialiased when it
-    shrinks, as jax.image.resize(method="bilinear") is."""
-    if arr.shape == (size, size):
-        return np.asarray(arr, np.float32)
-    x = torch.from_numpy(np.array(arr, np.float32))[None, None]
-    return F.interpolate(
-        x, size=(size, size), mode="bilinear", align_corners=False, antialias=True
-    )[0, 0].numpy()
+    shrinks, as jax.image.resize(method="bilinear") is: the port's one
+    resize, data/pipeline.py resize_bilinear."""
+    x = torch.from_numpy(np.array(arr, np.float32))
+    return resize_bilinear(x, size).numpy()
 
 
 def monthly_normal(

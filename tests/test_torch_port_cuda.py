@@ -688,3 +688,75 @@ def test_dcrnn_teacher_step_kernels_match_plain_pool(cuda):
         assert (gk[k] - gp[k]).abs().max() <= 1e-4 * gp[k].abs().max() + 1e-7, k
     for k in sp:
         torch.testing.assert_close(sk[k], sp[k], rtol=1e-4, atol=1e-6)
+
+
+def _small_store(tmp_path, n_counties=6, size=64):
+    """A seeded synthetic store of the three storms at ±12 days."""
+    from multimodal_outage_tpu_torch.data.store import load_store
+    from multimodal_outage_tpu_torch.data.synthetic import generate_store
+
+    generate_store(str(tmp_path), n_counties=n_counties, image_size=size, margin=12, seed=4)
+    return load_store(str(tmp_path))
+
+
+@pytest.mark.cuda
+def test_native_gather_into_pinned_buffer(cuda, tmp_path):
+    """The host gather writes straight into a pinned buffer's memory (its
+    numpy view), which then copies to the card unchanged."""
+    from multimodal_outage_tpu_torch.data import native
+
+    store = _small_store(tmp_path)
+    idx = np.array([0, 7, 7, store.n_dates - 1, 3], np.int64)
+    pinned = torch.empty((len(idx),) + store.frames.shape[1:], dtype=torch.float32,
+                         pin_memory=True)
+    assert pinned.is_pinned()
+    out = native.gather_frames(store.frames, idx, out=pinned.numpy())
+    assert np.shares_memory(out, pinned.numpy())
+    want = native.gather_frames_reference(store.frames, idx)
+    np.testing.assert_array_equal(pinned.numpy(), want)
+    dev = torch.empty_like(pinned, device=cuda)
+    dev.copy_(pinned, non_blocking=True)
+    torch.cuda.synchronize()
+    assert torch.equal(dev.cpu(), torch.from_numpy(want))
+
+
+@pytest.mark.cuda
+def test_prefetch_is_stream_safe_under_a_slow_consumer(cuda, tmp_path):
+    """20 batches from a depth-2 PrefetchIterator, each read on the main
+    stream only after a spin kernel of ~10 ms and dropped right after that
+    read is queued, bitwise equal to DevicePipeline's float32 batches. A
+    batch whose memory went back to the producer's stream before the read
+    ran (no record_stream), or a read that did not wait for the producer's
+    event, would differ."""
+    from multimodal_outage_tpu_torch.core.registry import HURRICANES
+    from multimodal_outage_tpu_torch.data.dataset import WindowDataset
+    from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline, PrefetchIterator
+
+    store = _small_store(tmp_path)
+    ds = WindowDataset.from_case_study(store, HURRICANES, 12, 7)
+    batches = [np.array([2 * k, 2 * k + 1]) % len(ds) for k in range(20)]
+    pipe = DevicePipeline(store, 3.2, 10.4, 64, torch.float32, cuda)
+    want = [pipe.batch(ds, b) for b in batches]
+    flags = []
+    for batch in PrefetchIterator(ds, iter(batches), 3.2, 10.4, 64, cuda, depth=2):
+        torch.cuda._sleep(20_000_000)
+        k = len(flags)
+        flags.append(torch.stack([(batch[key] == want[k][key]).all()
+                                  for key in ("x", "y", "date_feats")]))
+        del batch
+    torch.cuda.synchronize()
+    assert len(flags) == 20
+    assert bool(torch.stack(flags).all()), torch.stack(flags).cpu().tolist()
+
+
+@pytest.mark.cuda
+def test_device_store_upload_is_bitwise(cuda, tmp_path):
+    """DevicePipeline's store, copied from the memmap in chunks of dates
+    through one pinned buffer (several chunks here), equals the store."""
+    from multimodal_outage_tpu_torch.data.pipeline import upload_frames
+
+    store = _small_store(tmp_path)
+    for chunk in (3 * store.frames[0].nbytes, 1 << 30):
+        got = upload_frames(store.frames, cuda, chunk_bytes=chunk)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), torch.from_numpy(np.asarray(store.frames)))

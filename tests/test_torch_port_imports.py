@@ -38,7 +38,8 @@ def test_port_imports_no_jax_in_fresh_interpreter():
     for m in ("ops.max_pool", "models.layers", "models.unet", "models.fusion",
               "train.state", "train.steps", "train.loop", "core.checkpoint",
               "core.run_logging", "ops.gwnet_layer", "ops.dcrnn_stack", "models.dcrnn",
-              "data.stats", "viz.maps", "train.date2vec_pretrain", "core.oom"):
+              "data.stats", "viz.maps", "train.date2vec_pretrain", "core.oom",
+              "data.native", "data.acquisition", "data.pipeline"):
         assert f"multimodal_outage_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -87,3 +88,28 @@ def test_chip_smoke_has_no_jax_import():
                 else [node.module or ""]
             )
             assert not [n for n in names if _forbidden(n)], node.lineno
+
+
+def test_gather_library_is_the_ports_own():
+    """The host gather is built from multimodal_outage_tpu_torch/csrc/
+    gather.cpp into the port's _build/ and loads no library of the JAX
+    package or of native/ (checked in the fresh process's memory map)."""
+    code = (
+        "import json, numpy as np\n"
+        "from multimodal_outage_tpu_torch.data import native\n"
+        "a = np.arange(24, dtype=np.float32).reshape(4, 6)\n"
+        "assert (native.gather_frames(a, np.array([3, 0])) == a[[3, 0]]).all()\n"
+        "maps = {l.split()[-1] for l in open('/proc/self/maps') if l.rstrip().endswith('.so')}\n"
+        "print(json.dumps({'source': str(native.SOURCE), 'lib': str(native.library_path()),\n"
+        "                  'maps': sorted(maps)}))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["source"] == os.path.join(PORT, "csrc", "gather.cpp")
+    assert got["lib"].startswith(os.path.join(PORT, "_build", "gather-"))
+    assert got["lib"] in got["maps"]
+    for lib in got["maps"]:
+        for other in ("multimodal_outage_tpu", "native"):
+            assert not lib.startswith(os.path.join(REPO, other) + os.sep), lib

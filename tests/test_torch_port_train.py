@@ -289,7 +289,8 @@ def test_three_steps_through_both_pipelines(store32):
     tpipe = DevicePipeline(tds.store, tc.data.mean, tc.data.std, H, torch.bfloat16,
                            torch.device("cpu"))
     jbatches = [b for _, b in zip(range(3), jax_loop._epoch_iter(jds, jtr, jc, True, 3, jpipe))]
-    tbatches = [b for _, b in zip(range(3), loop._epoch_iter(tds, ttr, tc, True, 3, tpipe))]
+    tbatches = [b for _, b in zip(range(3), loop._epoch_iter(tds, ttr, tc, True, 3, tpipe,
+                                                             torch.device("cpu")))]
     for jb, tb in zip(jbatches, tbatches):
         for k in ("x", "y", "date_feats"):
             np.testing.assert_array_equal(tb[k].float().numpy(), np.asarray(jb[k], np.float32))

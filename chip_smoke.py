@@ -24,8 +24,12 @@ accumulating and remat steps against the plain steps), runs the data path
 (phase 12: a 4.2 GB store past the device budget trained, evaluated and
 served through the host prefetch path, its batches and a float32 step
 bitwise the device path's, the transform hooks on every stream, and
-`ingest` / `ingest-monthly` on the card against the CPU), and checks that
-each path went through its kernels.
+`ingest` / `ingest-monthly` on the card against the CPU), imports a
+reference Lightning checkpoint (phase 13: `import-torch` of a full-width
+`.ckpt` and Date2Vec `.pth`, its leaves bitwise the source, `evaluate`
+and `serve` of it equal to the same variables written directly, `train
+--resume` from it, and the DCRNN refusal), and checks that each path went
+through its kernels.
 
     python3 chip_smoke.py
 
@@ -2132,6 +2136,182 @@ def ingest_end_to_end(torch, cli, workdir, raster_cls, variable, compute_mean_st
             "max_abs_diff": err, "monthly_s": mwall, "stats": [mean, std]}
 
 
+def _reference_checkpoint(torch, ti, weights, workdir, n_counties=67, image_size=128):
+    """Phase 13a: a reference Lightning checkpoint of seeded full-width
+    variables (BatchNorm statistics drawn in [0.5, 1.5], so a mean/var
+    mix-up shows), in the reference's key layout: the port's
+    export_state_dict under `model.`, with the num_batches_tracked counter
+    of every BatchNorm and the 8 unused st_gnn.residual_convs (reference
+    graph_wavenet.py:159,239-245) that every real one carries; and a
+    whole-module Date2Vec .pth pickled through the port's shim. Returns
+    (variables with the .pth's fc1/fc2, .ckpt path, .pth path)."""
+    from multimodal_outage_tpu_torch.core.config import ModelConfig
+
+    v = weights.init_variables(ModelConfig(), 7, n_counties, seed=13, image_size=image_size)
+    g = torch.Generator().manual_seed(13)
+    v["batch_stats"] = weights.unflatten({k: 0.5 + torch.rand(t.shape, generator=g)
+                                          for k, t in weights.flatten(v["batch_stats"]).items()})
+    sd = {f"model.{k}": torch.from_numpy(a) for k, a in ti.export_state_dict(v).items()}
+    for k in [k for k in sd if k.endswith(".running_mean")]:
+        sd[k.replace(".running_mean", ".num_batches_tracked")] = torch.tensor(240)
+    for i in range(8):
+        sd[f"model.st_gnn.residual_convs.{i}.weight"] = torch.randn(32, 32, 1, 1, generator=g)
+        sd[f"model.st_gnn.residual_convs.{i}.bias"] = torch.randn(32, generator=g)
+    ckpt = os.path.join(workdir, "reference.ckpt")
+    torch.save({"state_dict": sd, "epoch": 3}, ckpt)
+    ti._register_date2vec_shim()
+    torch.manual_seed(13)
+    d2v = sys.modules["date2vec"].Date2Vec(k=64)
+    pth = os.path.join(workdir, "d2v.pth")
+    torch.save(d2v, pth)
+    v["params"]["date2vec"] = {
+        fc: {"kernel": getattr(d2v, fc).weight.detach().t().contiguous(),
+             "bias": getattr(d2v, fc).bias.detach().clone()} for fc in ("fc1", "fc2")}
+    return v, ckpt, pth
+
+
+def import_torch_end_to_end(torch, cli, dcm, gsm, mp, workdir, train_store, trained):
+    """Phase 13: a reference Lightning checkpoint through `import-torch` on
+    the card at full width (default ModelConfig: bf16, float32 params,
+    Graph WaveNet; 67 counties, 128² frames; phase 5's store), the launch
+    counters set to 0 just before each run and read just after. (a) the
+    checkpoint and Date2Vec .pth (_reference_checkpoint); (b)
+    `import-torch --checkpoint --d2v_pth --out logs/imported/checkpoints`,
+    its wall time; (c) the restored leaves bitwise the source variables
+    (Date2Vec fc1/fc2 the .pth's), a fresh Adam, step 0, the meta and the
+    1e30 sentinel; (d) `evaluate --pool pallas` of the import against
+    `evaluate` of a directory that CheckpointManager wrote directly from
+    the same variables: equal metrics, 4 pool launches per batch; (e)
+    `serve --checkpoint_path` of the import against `serve --weights` of
+    an .npz of the same variables: equal predictions, 9 DoubleConv and 1
+    stack launches per forward; (f) `train --resume --epochs 2` of job
+    `imported`: it resumes from the import's epoch 0 at step 0, trains
+    epoch 1 (pool launches as phase 5's), and best/ then holds epoch 1, not
+    the sentinel; its step p50 beside phase 5's; (g) `import-torch --st_gnn
+    dcrnn` raises the JAX package's ValueError and writes nothing.
+    cuDNN runs deterministic in (d) and (e), so equal inputs give equal
+    outputs."""
+    import numpy as np
+
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.checkpoint import CheckpointManager
+    from multimodal_outage_tpu_torch.parity import torch_import as ti
+
+    t_phase = time.perf_counter()
+    v, ref, pth = _reference_checkpoint(torch, ti, weights, workdir)
+    ckpt = os.path.join(workdir, "logs", "imported", "checkpoints")
+    t0 = time.perf_counter()
+    info = cli.run(["import-torch", "--checkpoint", ref, "--d2v_pth", pth, "--out", ckpt])
+    wall = time.perf_counter() - t0
+    log(f"phase 13b: import-torch {json.dumps(info)}; {wall:.3f} s wall")
+
+    tree = CheckpointManager(ckpt).restore()
+    want = {c: weights.flatten(v[c]) for c in ("params", "batch_stats")}
+    off = [f"{c}/{k}" for c in want for k, t in weights.flatten(tree[c]).items()
+           if k not in want[c] or not torch.equal(t, want[c][k])]
+    off += [f"{c}/{k}" for c in want for k in want[c] if k not in weights.flatten(tree[c])]
+    moments = weights.flatten(tree["opt_state"]["mu"]) | weights.flatten(tree["opt_state"]["nu"])
+    meta = {"epoch": 0, "best_val": math.inf, "best_epoch": -1, "bad_epochs": 0}
+    with open(os.path.join(ckpt, "best", "metrics.json")) as fh:
+        index = json.load(fh)
+    n_leaves = sum(len(w) for w in want.values())
+    log(f"phase 13c: {n_leaves} leaves restored, {len(off)} differ from the source; Adam count "
+        f"{tree['opt_state']['count']}, step {tree['step']}, meta {tree['meta']}, index {index}")
+    if (off or info["leaves"] != n_leaves or tree["step"] != 0 or tree["meta"] != meta
+            or tree["opt_state"]["count"] != 0 or any(t.any() for t in moments.values())
+            or index != {"0": 1e30}):
+        raise RuntimeError(f"phase 13c: the import is not the source: leaves off {off[:5]}")
+
+    direct = os.path.join(workdir, "direct_checkpoints")
+    CheckpointManager(direct).save(0, v, metrics={"val_loss": 0.0})
+    npz = os.path.join(workdir, "imported.npz")
+    weights.save_npz(npz, v)
+    common = ["--case", "michael", "--batch_size", "8", "--dataset_range", str(TRAIN_MARGIN),
+              "--data_dir", train_store]
+    runs, launches = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, src in (("imported", ckpt), ("direct", direct)):
+            mp.max_pool_forward.launches = mp.max_pool_backward.launches = 0
+            runs[name] = cli.run(["evaluate", "--checkpoint_path", src, "--pool", "pallas",
+                                  *common])
+            torch.cuda.synchronize()
+            launches[name] = (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+        for name, src in (("serve_imported", ["--checkpoint_path", ckpt]),
+                          ("serve_npz", ["--weights", npz])):
+            dcm.fused_double_conv.launches = gsm.gwnet_stack_forward.launches = 0
+            preds = os.path.join(workdir, f"{name}_preds")
+            runs[name] = cli.run(["serve", *src, *common, "--latency_stats", "--save_preds",
+                                  preds])
+            torch.cuda.synchronize()
+            launches[name] = (dcm.fused_double_conv.launches, gsm.gwnet_stack_forward.launches)
+            runs[name]["preds"] = np.load(os.path.join(preds, "preds.npy"))
+            shutil.rmtree(preds)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    ev, f = runs["imported"], runs["imported"]["forwards"]
+    gap = max(abs(ev["metrics"][k] - runs["direct"]["metrics"][k]) for k in METRICS)
+    log(f"phase 13d: evaluate --pool pallas of the import {json.dumps(ev)}; pool launches "
+        f"(fwd, bwd) {launches['imported']}; largest metric gap to the direct checkpoint "
+        f"{gap!r}")
+    if launches["imported"] != (4 * f, 0) or gap != 0.0:
+        raise RuntimeError(f"phase 13d: launches {launches}, metrics {ev['metrics']} vs "
+                           f"{runs['direct']['metrics']}")
+    sv, sn = runs["serve_imported"], runs["serve_npz"]
+    f = sv["forwards"]
+    d_preds = float(np.abs(sv["preds"] - sn["preds"]).max())
+    log(f"phase 13e: serve --checkpoint_path of the import: {sv['forwards']} forwards, "
+        f"metrics {json.dumps(sv['metrics'])}, launches (double_conv, gwnet_stack) "
+        f"{launches['serve_imported']}; max |Δ| of the predictions to serve --weights "
+        f"{d_preds!r}; p50 {sv['latency']['p50_ms']:.3f} ms p90 {sv['latency']['p90_ms']:.3f} "
+        f"ms (B=8)")
+    if (launches["serve_imported"] != (9 * f, f) or sv["preds"].shape != sn["preds"].shape
+            or d_preds != 0.0 or not np.isfinite(sv["preds"]).all()):
+        raise RuntimeError(f"phase 13e: launches {launches['serve_imported']}, max |Δ| "
+                           f"{d_preds}")
+
+    cwd = os.getcwd()
+    os.chdir(workdir)  # the run directory is ./logs/<job_id>
+    try:
+        mp.max_pool_forward.launches = mp.max_pool_backward.launches = 0
+        out = cli.run(["train", "--resume", "--job_id", "imported", "--epochs", "2", "--pool",
+                       "pallas", *common])
+        torch.cuda.synchronize()
+        pool = (mp.max_pool_forward.launches, mp.max_pool_backward.launches)
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(workdir, "logs", "imported", "metrics.jsonl")) as fh:
+        epochs = [r["epoch"] for r in map(json.loads, fh) if r.get("phase") == "val"]
+    with open(os.path.join(ckpt, "best", "metrics.json")) as fh:
+        index = json.load(fh)
+    latest = CheckpointManager(ckpt).restore_latest()
+    steps, evals = out["train_steps"], out["eval_forwards"]
+    log(f"phase 13f: train --resume from the import {json.dumps(out)}; val rows of epochs "
+        f"{epochs}; pool launches (fwd, bwd) {pool}; best index {index}; latest step "
+        f"{latest['step']}, Adam count {latest['opt_state']['count']}; step p50 "
+        f"{out['train_step_ms_p50']:.3f} ms (phase 5: {trained['train_step_ms_p50']:.3f} ms)")
+    if (epochs != [1] or steps != trained["train_steps"] or latest["step"] != steps
+            or latest["opt_state"]["count"] != steps or pool != (4 * steps + 4 * evals, 4 * steps)
+            or index != {"1": out["val_loss"]} or not out["val_loss"] < 1e30):
+        raise RuntimeError(f"phase 13f: the resumed run is off: {out}")
+
+    dcrnn_out = os.path.join(workdir, "dcrnn_import")
+    try:
+        cli.run(["import-torch", "--checkpoint", ref, "--out", dcrnn_out, "--st_gnn", "dcrnn"])
+    except ValueError as e:
+        if "no reference mapping for a DCRNN st-GNN" not in str(e) or os.path.exists(dcrnn_out):
+            raise
+        log(f"phase 13g: import-torch --st_gnn dcrnn raised ValueError: {e}")
+    else:
+        raise RuntimeError("phase 13g: import-torch --st_gnn dcrnn did not raise")
+    return {"phase_s": time.perf_counter() - t_phase, "import_s": wall, "evaluate_gap": gap,
+            "serve_max_abs_diff": d_preds,
+            "serve_p50_ms": sv["latency"]["p50_ms"], "resumed_step_p50_ms":
+            out["train_step_ms_p50"], "launches": {
+                "evaluate_pool": launches["imported"], "serve": launches["serve_imported"],
+                "train_pool": pool}}
+
+
 def by_supports(rows, b):
     """Phase 9c's S = 1 and S = 3 rows of a kernel for the kernels line:
     each S's largest error over both dtypes and its bf16 time at batch b
@@ -2238,6 +2418,8 @@ def main() -> int:
         log(f"phase 11: {json.dumps(p11)}")
         p12 = data_path_end_to_end(torch, cli, dcm, gsm, mp, workdir, train_store, trained)
         log(f"phase 12: {json.dumps(p12)}")
+        p13 = import_torch_end_to_end(torch, cli, dcm, gsm, mp, workdir, train_store, trained)
+        log(f"phase 13: {json.dumps(p13)}")
 
     main_dc = [r for r in dc_rows if r["dtype"] == "bfloat16"]
     main_st = [r for r in st_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]
@@ -2250,6 +2432,7 @@ def main() -> int:
             "replaces": "multimodal_outage_tpu/ops/unet_pallas.py:119",
             "launches": launches["double_conv"],
             "launches_phase12": p12["c"]["serve_launches"][0],  # 12c: serve from the host path
+            "launches_phase13": p13["launches"]["serve"][0],  # 13e: serve of an import
             "max_abs_err": max(r["max_abs_err"] for r in main_dc),
             "ms": sum(r["ms"] for r in main_dc),
             "plain_ms": sum(r["plain_ms"] for r in main_dc),
@@ -2263,6 +2446,7 @@ def main() -> int:
             "replaces": "multimodal_outage_tpu/ops/gwnet_stack_pallas.py:200",
             "launches": launches["gwnet_stack"],
             "launches_phase12": p12["c"]["serve_launches"][1],
+            "launches_phase13": p13["launches"]["serve"][1],
             "max_abs_err": main_st["max_abs_err"], "ms": main_st["ms"],
             "plain_ms": main_st["plain_ms"], "bound_ms": main_st["bound_ms"],
             "bound_by": main_st["bound_by"], "library_ms": None,
@@ -2281,6 +2465,9 @@ def main() -> int:
             # phase 12: (a) train and (c) evaluate through the host path
             "launches_phase12": {"a": p12["a"]["pool_launches"][i],
                                  "c": p12["c"]["evaluate_pool_launches"][i]},
+            # phase 13: (d) evaluate and (f) train --resume of an import
+            "launches_phase13": {"d": p13["launches"]["evaluate_pool"][i],
+                                 "f": p13["launches"]["train_pool"][i]},
             "max_abs_err": max(r["max_abs_err"] for r in mp_rows if r["kernel"] == name),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),

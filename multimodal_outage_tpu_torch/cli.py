@@ -13,6 +13,10 @@
   evaluate — sweep a held-out hurricane with a checkpoint through the
              trainable model in eval mode, print the test metrics JSON,
              and write predictions, risk maps and rasters on request
+  import-torch — convert a reference Lightning checkpoint (.ckpt, or a
+             bare Modified_UNET state_dict, with a Date2Vec .pth) into a
+             checkpoint directory that evaluate, serve --checkpoint_path
+             and train --resume read; print {"out", "torch_keys", "leaves"}
   pretrain-d2v — pretrain a Date2Vec bundle (.npz, the JAX package's
              names) for --d2v_bundle, print {"out", "final_loss"}
   ingest   — pack a {county}/{Y_m_d}.npy|pickle tree of raw rasters into
@@ -20,11 +24,20 @@
   ingest-monthly — attach a {county}/monthly_{Y}_{M}.npy tree to a store
              as its risk-map baseline sidecar
 
-serve, train, evaluate, pretrain-d2v, ingest and ingest-monthly run on
-the card unless --device cpu is given; without a card they raise rather
-than falling back. Every command prints one JSON object as its last
-line; train --num_runs N > 1 prints {"runs": [<run 0's results>, ...]};
-ingest and ingest-monthly print the JAX CLI's line before it.
+serve, train, evaluate, import-torch, pretrain-d2v, ingest and
+ingest-monthly run on the card unless --device cpu is given; without a
+card they raise rather than falling back. Every command prints one JSON
+object as its last line; train --num_runs N > 1 prints {"runs": [<run 0's
+results>, ...]}; import-torch, ingest and ingest-monthly print the JAX
+CLI's line before it.
+
+train, evaluate, serve and import-torch take every flag that the JAX
+CLI's command of the same name takes, with its defaults, into the same
+Config fields. What the port cannot run raises NotImplementedError rather
+than being ignored: a mesh of more than one device (--mesh_data,
+--mesh_model, --mesh_time; train/loop.py check_supported) and
+multi-process training (--coordinator_address, --num_processes > 1,
+--process_id > 0).
 """
 
 from __future__ import annotations
@@ -61,19 +74,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--dataset_range", type=int, default=30)
 
     p = sub.add_parser("serve", help="Serve a held-out hurricane through the engine")
-    p.add_argument("--data_dir", type=str, default="data/synthetic")
     p.add_argument("--case", type=str, default="michael")
-    p.add_argument("--dataset_range", type=int, default=30)
-    p.add_argument("--horizon", type=int, default=7)
-    p.add_argument("--image_size", type=int, default=128)
-    p.add_argument("--batch_size", type=int, default=16)
-    p.add_argument(
-        "--compute_dtype", type=str, default="bfloat16",
-        choices=("bfloat16", "float32"),
-    )
-    p.add_argument("--st_gnn", type=str, default="gwnet", choices=("gwnet", "dcrnn"),
-                   help="spatio-temporal GNN: Graph WaveNet or DCRNN, each as one kernel")
-    _graph_flags(p)
+    _model_flags(p)
+    _mesh_flags(p)
     src = p.add_mutually_exclusive_group(required=True)
     src.add_argument("--weights", type=str, help=".npz written by weights.save_npz")
     # not TrainConfig.seed: serve, like evaluate, draws a small store's
@@ -81,11 +84,10 @@ def _parser() -> argparse.ArgumentParser:
     src.add_argument("--seed", type=int, dest="weights_seed",
                      help="random weights from this seed")
     src.add_argument("--checkpoint_path", type=str,
-                     help="checkpoint directory written by train (its best step)")
+                     help="checkpoint directory written by train or import-torch (its best "
+                     "step)")
     p.add_argument("--save_preds", type=str, default=None,
                    help="write the swept predictions to <dir>/preds.npy")
-    p.add_argument("--device", type=str, default=None, choices=("cuda", "cpu"),
-                   help="default: cuda (raises if there is no card)")
     p.add_argument("--max_batches", type=int, default=None)
     p.add_argument("--latency_stats", action="store_true",
                    help="also report p50/p90 per-request latency")
@@ -96,13 +98,6 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--job_id", type=str, default="test",
                    help="run directory logs/<job_id> (metrics, checkpoints)")
-    p.add_argument("--teacher_forcing", type=float, default=0.0,
-                   help="DCRNN scheduled sampling: the probability that a decoder step "
-                   "is fed the encoded ground-truth frame instead of its own output "
-                   "(train steps only; 0 turns it off)")
-    p.add_argument("--tf_decay_steps", type=int, default=0,
-                   help="with --teacher_forcing: the inverse-sigmoid decay constant τ, "
-                   "p(step) = p0·τ/(τ + e^{step/τ}); 0 keeps p constant")
     p.add_argument("--num_runs", type=int, default=1,
                    help="repeat the run N times: run i is <job_id>_r<i> at seed + i")
     p.add_argument("--resume", action="store_true",
@@ -115,10 +110,20 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--debug_nans", action="store_true",
                    help="raise FloatingPointError at the first NaN or inf of a train step")
     _model_flags(p)
+    _mesh_flags(p)
+    p.add_argument("--shard_store", action="store_true",
+                   help="partition the device frame store over the data mesh axis; on one "
+                   "device that partition is the whole store, as in the JAX package")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="multi-process training: not in the port yet (raises)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="multi-process training: more than 1 raises")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="multi-process training: more than 0 raises")
 
     p = sub.add_parser("evaluate", help="Sweep a held-out hurricane with a checkpoint")
     p.add_argument("--checkpoint_path", type=str, required=True,
-                   help="checkpoint directory written by train (its best step)")
+                   help="checkpoint directory written by train or import-torch (its best step)")
     p.add_argument("--case", type=str, default="idalia", help="held-out hurricane")
     p.add_argument("--save_preds", type=str, default=None,
                    help="write preds.npy and targets.npy to this directory")
@@ -128,6 +133,19 @@ def _parser() -> argparse.ArgumentParser:
                    help="write percent-of-normal risk-map PNGs here")
     p.add_argument("--raster_maps", type=str, default=None,
                    help="write prediction raster PNGs here")
+    _model_flags(p)
+    _mesh_flags(p)
+
+    p = sub.add_parser("import-torch", help="Convert a reference Lightning checkpoint (or a "
+                       "bare Modified_UNET state_dict) into a checkpoint directory that "
+                       "evaluate, serve and train --resume read")
+    p.add_argument("--checkpoint", type=str, required=True, help="reference .ckpt or .pth")
+    p.add_argument("--d2v_pth", type=str, default=None,
+                   help="reference Date2Vec .pth (whole-module pickle or state_dict): its "
+                   "fc1/fc2 replace the template's Date2Vec encoder")
+    p.add_argument("--out", type=str, required=True, help="checkpoint directory to write")
+    p.add_argument("--no_strict", action="store_true",
+                   help="tolerate missing and extra reference keys instead of raising")
     _model_flags(p)
 
     p = sub.add_parser("pretrain-d2v", help="Pretrain a Date2Vec bundle for --d2v_bundle")
@@ -170,15 +188,27 @@ def _grad_accum_arg(v: str) -> int:
         ) from None
 
 
-def _graph_flags(p: argparse.ArgumentParser) -> None:
-    """The model, graph and memory flags that train, evaluate and serve
-    share with the JAX CLI (its _add_common_model_flags, cli.py:35-140).
-    evaluate and serve record the memory flags in the Config; only
-    train's steps read them."""
+def _model_flags(p: argparse.ArgumentParser) -> None:
+    """The flags of the JAX CLI's _add_common_model_flags (its cli.py:
+    35-140), which train, evaluate, serve and import-torch take, with its
+    defaults, and --device. Each is recorded in the Config; a command
+    reads the ones its work uses (only train's steps read the memory
+    flags, and serve's engine has its own pool, BatchNorm folding and
+    self-feeding decoder, as the JAX engine has)."""
+    p.add_argument("--st_gnn", type=str, default="gwnet", choices=("gwnet", "dcrnn"),
+                   help="spatio-temporal GNN: Graph WaveNet or DCRNN")
+    p.add_argument("--horizon", type=int, default=7)
+    p.add_argument("--batch_size", type=int, default=16)
+    p.add_argument("--data_dir", type=str, default="data/synthetic")
+    p.add_argument("--dataset_range", type=int, default=30)
+    p.add_argument("--image_size", type=int, default=128)
     p.add_argument("--n_counties", type=int, default=67,
-                   help="recorded in the config; the store's county count is used")
+                   help="import-torch: the template's county count; the others record it "
+                   "and use the store's")
     p.add_argument("--input_channels", type=int, default=1)
     p.add_argument("--output_channels", type=int, default=1)
+    p.add_argument("--compute_dtype", type=str, default="bfloat16",
+                   choices=("bfloat16", "float32"))
     p.add_argument("--d2v_bundle", type=str, default=None,
                    help=".npz Date2Vec bundle from pretrain-d2v, installed into fresh "
                    "weights (a checkpoint's own Date2Vec stands)")
@@ -200,6 +230,15 @@ def _graph_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--gwnet_kernel_size", type=int, default=None,
                    help="Graph WaveNet's temporal kernel (default 1; >1 is the dilated "
                    "gated TCN, receptive field 13 at 2)")
+    p.add_argument("--teacher_forcing", type=float, default=0.0,
+                   help="train: DCRNN scheduled sampling, the probability that a decoder "
+                   "step is fed the encoded ground-truth frame instead of its own output "
+                   "(0 turns it off; evaluation and serving always self-feed)")
+    p.add_argument("--tf_decay_steps", type=int, default=0,
+                   help="with --teacher_forcing: the inverse-sigmoid decay constant τ, "
+                   "p(step) = p0·τ/(τ + e^{step/τ}); 0 keeps p constant")
+    p.add_argument("--bn_two_pass", action="store_true",
+                   help="two-pass BatchNorm statistics instead of the single sweep")
     p.add_argument("--remat", action="store_true",
                    help="train: recompute U-Net conv blocks in the backward "
                    "(torch.utils.checkpoint) for less activation memory")
@@ -217,68 +256,67 @@ def _graph_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--xla_vmem_limit_kib", type=int, default=49152,
                    help="recorded in the config for the JAX CLI's sake (an XLA TPU "
                    "compiler budget); the port does not read it")
-
-
-def _model_flags(p: argparse.ArgumentParser) -> None:
-    """The data, model and device flags that train and evaluate share."""
-    p.add_argument("--st_gnn", type=str, default="gwnet", choices=("gwnet", "dcrnn"),
-                   help="spatio-temporal GNN: Graph WaveNet or DCRNN")
-    p.add_argument("--batch_size", type=int, default=16)
-    p.add_argument("--data_dir", type=str, default="data/synthetic")
-    p.add_argument("--dataset_range", type=int, default=30)
-    p.add_argument("--horizon", type=int, default=7)
-    p.add_argument("--image_size", type=int, default=128)
-    p.add_argument("--compute_dtype", type=str, default="bfloat16",
-                   choices=("bfloat16", "float32"))
     p.add_argument("--pool", choices=("reduce_window", "pairwise", "pallas"),
                    default="reduce_window",
-                   help="2×2 max-pool: F.max_pool2d, strided-slice maximums, "
-                   "or the max-pool kernel pair (ops/max_pool.py)")
-    p.add_argument("--bn_two_pass", action="store_true",
-                   help="two-pass BatchNorm statistics instead of the single sweep")
+                   help="2×2 max-pool of train and evaluate: F.max_pool2d, strided-slice "
+                   "maximums, or the max-pool kernel pair (ops/max_pool.py)")
     p.add_argument("--device", type=str, default=None, choices=("cuda", "cpu"),
                    help="default: cuda (raises if there is no card)")
-    _graph_flags(p)
+
+
+def _mesh_flags(p: argparse.ArgumentParser) -> None:
+    """The JAX CLI's mesh axes (its _add_mesh_flags, cli.py:143-158), which
+    train, evaluate and serve take. The port runs on one device: a mesh
+    of more than one raises NotImplementedError (train/loop.py
+    check_supported)."""
+    p.add_argument("--mesh_data", type=int, default=-1,
+                   help="data-parallel axis (-1: every device left over, one on one card)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="tensor-parallel axis (bottleneck MLP hidden dims)")
+    p.add_argument("--mesh_time", type=int, default=1,
+                   help="sequence-parallel axis (temporal window T)")
 
 
 def _config(args: argparse.Namespace):
-    """The Config of the parsed flags, field by field as the JAX CLI's
-    _build_config (its cli.py:161-230) maps them; a flag a command lacks
-    takes the field's default."""
+    """The Config of the parsed flags of train, evaluate, serve or
+    import-torch, field by field as the JAX CLI's _build_config (its
+    cli.py:161-230) maps them; a flag a command lacks takes the field's
+    default."""
     from multimodal_outage_tpu_torch.core.config import (
         Config,
         DataConfig,
         DCRNNConfig,
         GWNetConfig,
+        MeshConfig,
         ModelConfig,
         TrainConfig,
     )
 
     gwnet = {}
-    if getattr(args, "adjtype", None):
+    if args.adjtype:
         gwnet["adjtype"] = args.adjtype
-    if getattr(args, "no_gcn", False):
+    if args.no_gcn:
         gwnet["gcn_bool"] = False
-    if getattr(args, "no_addaptadj", False):
+    if args.no_addaptadj:
         gwnet["addaptadj"] = False
-    if getattr(args, "svd_aptinit", False):
+    if args.svd_aptinit:
         gwnet["randomadj"] = False
-    if getattr(args, "gwnet_kernel_size", None):
+    if args.gwnet_kernel_size:
         gwnet["kernel_size"] = args.gwnet_kernel_size
     return Config(
         data=DataConfig(
             data_dir=args.data_dir, horizon=args.horizon, dataset_range=args.dataset_range,
             image_size=args.image_size, n_counties=args.n_counties,
+            shard_store=getattr(args, "shard_store", False),
         ),
         model=ModelConfig(
             st_gnn=args.st_gnn, input_channels=args.input_channels,
             output_channels=args.output_channels, compute_dtype=args.compute_dtype,
             d2v_bundle=args.d2v_bundle, remat=args.remat, remat_scope=args.remat_scope,
-            pool=getattr(args, "pool", "reduce_window"),
-            bn_single_pass=not getattr(args, "bn_two_pass", False),
+            pool=args.pool, bn_single_pass=not args.bn_two_pass,
             gwnet=GWNetConfig(**gwnet),
-            dcrnn=DCRNNConfig(teacher_forcing=getattr(args, "teacher_forcing", 0.0),
-                              tf_decay_steps=getattr(args, "tf_decay_steps", 0)),
+            dcrnn=DCRNNConfig(teacher_forcing=args.teacher_forcing,
+                              tf_decay_steps=args.tf_decay_steps),
         ),
         train=TrainConfig(
             epochs=getattr(args, "epochs", 5), batch_size=args.batch_size,
@@ -289,6 +327,9 @@ def _config(args: argparse.Namespace):
             profile_dir=getattr(args, "profile_dir", None),
             debug_nans=getattr(args, "debug_nans", False),
         ),
+        mesh=MeshConfig(data=getattr(args, "mesh_data", -1),
+                        model=getattr(args, "mesh_model", 1),
+                        time=getattr(args, "mesh_time", 1)),
         adjacency_csv=args.adjacency,
     )
 
@@ -302,6 +343,13 @@ def train_command(args: argparse.Namespace) -> Dict[str, Any]:
     from multimodal_outage_tpu_torch.core.device import resolve_device
     from multimodal_outage_tpu_torch.train.loop import fit
 
+    if (args.coordinator_address is not None or (args.num_processes or 1) > 1
+            or (args.process_id or 0) > 0):
+        raise NotImplementedError(
+            "multi-process training (--coordinator_address, --num_processes, "
+            "--process_id): not in the port yet; it comes with the ROADMAP item "
+            "'SPMD with sample_weight'"
+        )
     device = resolve_device(args.device)  # fail before any work
     cfg = _config(args)
     if args.num_runs == 1:
@@ -381,13 +429,15 @@ def serve_command(args: argparse.Namespace) -> Dict[str, Any]:
     from multimodal_outage_tpu_torch.data.store import load_store
     from multimodal_outage_tpu_torch.serving import ServingModel, serve_eval
     from multimodal_outage_tpu_torch.train.date2vec_pretrain import install_bundle, load_bundle
+    from multimodal_outage_tpu_torch.train.loop import check_supported
     from multimodal_outage_tpu_torch.weights import init_variables, load_npz
 
     if args.checkpoint_path is not None:
         require_checkpoints(args.checkpoint_path)
+    cfg = _config(args)
+    check_supported(cfg)
     device = resolve_device(args.device)  # fail before any work
     store = load_store(args.data_dir)
-    cfg = _config(args)
     if args.checkpoint_path is not None:
         # the best step's params and batch_stats (JAX train/loop.py:773-848)
         variables = restore_variables(args.checkpoint_path)
@@ -420,6 +470,20 @@ def serve_command(args: argparse.Namespace) -> Dict[str, Any]:
         np.save(os.path.join(args.save_preds, "preds.npy"), np.concatenate(preds))
         out["save_preds"] = args.save_preds
     return out
+
+
+def import_torch_command(args: argparse.Namespace) -> Dict[str, Any]:
+    """Run `import-torch` (JAX cli.py:432-448): a reference checkpoint
+    into a checkpoint directory at --out (parity/torch_import.py
+    convert_checkpoint). Prints the JAX CLI's line, returns {"out",
+    "torch_keys", "leaves"}."""
+    from multimodal_outage_tpu_torch.parity.torch_import import convert_checkpoint
+
+    info = convert_checkpoint(_config(args), args.checkpoint, args.out, d2v_pth=args.d2v_pth,
+                              strict=not args.no_strict, device=args.device)
+    print(f"imported {info['torch_keys']} reference tensors -> "
+          f"{info['leaves']} framework leaves at {args.out}")
+    return {"out": args.out, **info}
 
 
 def pretrain_d2v_command(args: argparse.Namespace) -> Dict[str, Any]:
@@ -486,7 +550,8 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         mean, std = compute_mean_std(load_store(args.data_dir), dataset_range=args.dataset_range)
         return {"mean": mean, "std": std}
     return {"serve": serve_command, "train": train_command, "evaluate": evaluate_command,
-            "pretrain-d2v": pretrain_d2v_command, "ingest": ingest_command,
+            "import-torch": import_torch_command, "pretrain-d2v": pretrain_d2v_command,
+            "ingest": ingest_command,
             "ingest-monthly": ingest_monthly_command}[args.command](args)
 
 

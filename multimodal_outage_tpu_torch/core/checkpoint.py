@@ -1,6 +1,7 @@
 """Checkpoints of the port, in torch format (the JAX package's
-core/checkpoint.py keeps the same retention with orbax; importing its
-orbax checkpoints is a ROADMAP item).
+core/checkpoint.py keeps the same retention with orbax; its orbax
+checkpoints convert into this format with tools/export_jax_checkpoint.py,
+and reference Lightning checkpoints with `import-torch`).
 
 Two stores under the checkpoint directory, each a directory of
 <step>.pt files written with torch.save:
@@ -72,6 +73,17 @@ class CheckpointManager:
             for old in self._steps(d):
                 if old not in keep_d:
                     os.unlink(os.path.join(d, f"{old}.pt"))
+
+    def save_latest(self, step: int, tree: Any) -> None:
+        """Commit `step` to the latest store only, as save commits it
+        there: a step that the best store does not keep (tools/
+        export_jax_checkpoint.py, a run's newest step past its best)."""
+        tree = _to_cpu(tree)
+        os.makedirs(self._latest, exist_ok=True)
+        self._replace(os.path.join(self._latest, f"{step}.pt"), lambda p: torch.save(tree, p))
+        for old in self._steps(self._latest):
+            if old != step:
+                os.unlink(os.path.join(self._latest, f"{old}.pt"))
 
     @staticmethod
     def _replace(path: str, write) -> None:

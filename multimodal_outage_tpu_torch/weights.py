@@ -7,8 +7,8 @@ kernel reads them as they are). Only the ConvTranspose kernel changes
 layout, where it is handed to F.conv_transpose2d (conv_transpose_weight).
 The trainable model's parameters and buffers sit under the same paths
 (module_variables / load_variables), so a trained module feeds the
-serving engine or a checkpoint as it is. Loading orbax checkpoints is a
-ROADMAP item.
+serving engine or a checkpoint as it is. The JAX package's orbax
+checkpoints convert with tools/export_jax_checkpoint.py.
 """
 
 from __future__ import annotations

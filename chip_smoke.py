@@ -28,8 +28,12 @@ bitwise the device path's, the transform hooks on every stream, and
 reference Lightning checkpoint (phase 13: `import-torch` of a full-width
 `.ckpt` and Date2Vec `.pth`, its leaves bitwise the source, `evaluate`
 and `serve` of it equal to the same variables written directly, `train
---resume` from it, and the DCRNN refusal), and checks that each path went
-through its kernels.
+--resume` from it, and the DCRNN refusal), runs the `bench` configs
+(phase 14: every ported config of benchmarks.py through run_benchmark,
+`bench --config e2e_train` through the CLI, two batch_scaling cells in
+processes of their own, and the A/B pairs that put a kernel against its
+module held to the port's bars), and checks that each path went through
+its kernels.
 
     python3 chip_smoke.py
 
@@ -57,8 +61,11 @@ import time
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools"))
 from _timing import card, device_ms, events_ms, events_ms_cold, flush_buffer  # noqa: E402
 
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 CUDA-core
+from multimodal_outage_tpu_torch.benchmarks import _PEAKS  # noqa: E402
+
+# H100 SXM data sheet, one table for this script and `bench --config roofline`
+H100_BF16_OPS, H100_BYTES_PER_S = _PEAKS["h100 80gb hbm3"]  # dense bf16 tensor; HBM3
+PEAK_OPS = {"bfloat16": H100_BF16_OPS, "float32": 67e12}  # fp32: CUDA cores
 M_B1 = 67 * 7  # folded images of one request: 67 counties × 7 days
 # (H, Cin, C) of the 9 DoubleConvs of one forward, contraction then expansion
 DOUBLE_CONV_SHAPES = (
@@ -146,6 +153,41 @@ BIG_MARGIN = 160
 # in another order
 INGEST_MARGIN = 8
 INGEST_ATOL, INGEST_RTOL = 1e-4, 1e-5
+# phase 14: the `bench` configs (multimodal_outage_tpu_torch/benchmarks.py)
+# run through run_benchmark at a small --steps; e2e_train through the CLI
+# in a subprocess; batch_scaling's b=8 plain cell and b=32 plain (the cell
+# that does not fit one-shot) each in its own process
+BENCH_STEPS = {
+    "dcrnn": 3, "unet_train": 3, "serving": 6, "fusion_inference": 6, "unet_cpu_b4": 3,
+    "gwnet_forecast": 6, "gwnet_stack": 10, "dcrnn_stack": 10, "pool_pallas": 2,
+    "remat_conv": 2, "roofline": 3, "serving_roofline": 5, "fused_stack": 3,
+    "multimodal_fusion": 3, "grad_accum_sync": 2,
+}
+_THROUGHPUT = {"step_seconds", "tiles_per_step", "tiles_per_sec", "batch", "image_size"}
+_ROOF = {"device_kind", "gflops_per_step", "gbytes_per_step", "measured_ms",
+         "tensor_floor_ms", "hbm_floor_ms", "bound", "arithmetic_intensity"}
+# the detail keys of each config on the card (the JAX package's keys on a
+# TPU, under the port's names: xla/flax → module, mxu → tensor)
+BENCH_DETAIL = {
+    "dcrnn": _THROUGHPUT | {"forecast_latency_ms"},
+    "unet_train": _THROUGHPUT,
+    "serving": {"module_eval_ms", "speedup_vs_module", "b16_throughput_tiles_per_sec"},
+    "fusion_inference": set(),
+    "unet_cpu_b4": _THROUGHPUT,
+    "gwnet_forecast": {f"b{b}_{k}" for b in (1, 16) for k in ("module", "pallas")},
+    "gwnet_stack": {f"b{b}_{k}_{w}" for b in (1, 16) for k in ("module", "stack")
+                    for w in ("ms", "device_us")},
+    "dcrnn_stack": {f"b{b}_{k}_{w}" for b in (1, 16) for k in ("module", "stack")
+                    for w in ("ms", "device_us")},
+    "pool_pallas": {"iso_reduce_window", "iso_pallas", "reduce_window", "pallas"},
+    "remat_conv": {"base", "remat_conv"},
+    "roofline": _ROOF,
+    "serving_roofline": _ROOF | {"tiles_per_sec"},
+    "fused_stack": _THROUGHPUT,
+    "multimodal_fusion": _THROUGHPUT,
+    "grad_accum_sync": {"pipelined_tiles_per_sec", "synced_tiles_per_sec",
+                        "pipelined_step_ms", "synced_step_ms"},
+}
 
 
 def log(*a):
@@ -2312,6 +2354,178 @@ def import_torch_end_to_end(torch, cli, dcm, gsm, mp, workdir, train_store, trai
                 "train_pool": pool}}
 
 
+def _bench_line_faults(out, detail_keys):
+    """What is missing or off in one `bench` line: its keys, a finite
+    value, and its detail keys, each numeric one finite."""
+    faults = []
+    if list(out) != ["metric", "value", "unit", "vs_baseline", "detail"]:
+        faults.append(f"keys {list(out)}")
+    v = out.get("value")
+    if not isinstance(v, (int, float)) or not math.isfinite(v):
+        faults.append(f"value {v!r}")
+    detail = out.get("detail", {})
+    if set(detail) != detail_keys:
+        faults.append(f"detail keys {sorted(detail)}, expected {sorted(detail_keys)}")
+    faults += [f"detail {k} {d!r}" for k, d in detail.items()
+               if isinstance(d, float) and not math.isfinite(d)]
+    return "; ".join(faults)
+
+
+def bench_end_to_end(torch, F, dcm, gsm, glm, dsm, mp, train_store, trained):
+    """Phase 14: the `bench` configs (benchmarks.py) on the card at full
+    width. (a) `bench --config e2e_train --steps 3` through the CLI in a
+    subprocess (its own 0.5 GB store), its step seconds beside phase 5's
+    p50; (b) batch_scaling's b=8 plain cell and b=32 plain, which must run
+    out of memory, each in its own process; (c) how far the host runs ahead
+    of the device in the e2e loop (host ms of a step's call and of the
+    next batch's call, whose pageable index upload synchronises the
+    stream, beside the pair's events ms); (d) every other
+    ported config through run_benchmark at BENCH_STEPS, on phase 5's store,
+    with torch's default TF32 settings (as a user runs `bench`), the
+    launch counters set to 0 just before and read just after: each kernel
+    must be launched, each line complete; (e) the A/B pairs that put a
+    kernel against its module held to the port's bars, with TF32 off:
+    kernel 2 and kernel 5 against the module at B=1 and 16 (float32, 1e-4;
+    also their 20-forward CUDA-graph chains), kernel 3 in every layer
+    against the module (float32), and the isolated pool at the B=8 stem
+    shape (forward equal to F.max_pool2d, backward equal to the plain
+    version of the kernel's tie rule; the positions where F.max_pool2d's
+    backward routes a tie elsewhere are counted). Fails on a disagreement
+    or a missing field, not on a time."""
+    import gc
+    import subprocess
+
+    from multimodal_outage_tpu_torch import benchmarks as bm
+    from multimodal_outage_tpu_torch.models.layers import max_pool_2x2
+
+    t_phase = time.perf_counter()
+    failures = []
+    bm._E2E_STORE["dir"] = train_store  # phase 5's 67 × 128² store; no atexit cleanup
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        "before the subprocess cells")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "multimodal_outage_tpu_torch", "bench", "--config", "e2e_train",
+         "--steps", "3"], cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600,
+    )
+    wall_e2e = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 14a: bench e2e_train exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    e2e = json.loads(proc.stdout.strip().splitlines()[-1])
+    p5 = trained["train_step_ms_p50"]
+    ratio = 1e3 * e2e["detail"]["step_seconds"] / p5
+    log(f"phase 14a: bench --config e2e_train --steps 3 (CLI, subprocess) {json.dumps(e2e)}; "
+        f"{wall_e2e:.1f} s wall; step {1e3 * e2e['detail']['step_seconds']:.3f} ms over phase "
+        f"5's p50 {p5:.3f} ms = {ratio:.4f}")
+    bad = _bench_line_faults(e2e, {"step_seconds", "tiles_per_step", "batch", "remat",
+                                   "oom_batches"})
+    if bad or e2e["metric"] != "e2e_train_tiles_per_sec_per_chip" or e2e["detail"]["batch"] != 8:
+        failures.append(f"14a e2e_train: {bad} {e2e}")
+
+    t0 = time.perf_counter()
+    bs = bm.run_benchmark("batch_scaling", steps=2, batches=(8, 32), rows=bm.SCALING_ROWS[:1])
+    log(f"phase 14b: batch_scaling cells b8, b32 (a process each) {json.dumps(bs)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not isinstance(bs["detail"].get("b8"), float) or bs["detail"].get("b32") != "oom":
+        failures.append(f"14b batch_scaling: b8 must run and b32 run out of memory: {bs}")
+
+    su = bm.make_e2e_setup(8)
+    run = bm._e2e_run(su, 8)
+    run()
+    torch.cuda.synchronize()
+    batch, sync_rows = bm._e2e_batch(su, 8, 1), []
+    for i in range(2, 6):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        t0 = time.perf_counter()
+        su["step"](su["state"], batch, su["supports"], su["lr"], su["seed"])
+        t1 = time.perf_counter()
+        batch = bm._e2e_batch(su, 8, i)
+        t2 = time.perf_counter()
+        end.record()
+        end.synchronize()
+        sync_rows.append({"dispatch_ms": 1e3 * (t1 - t0), "next_batch_host_ms": 1e3 * (t2 - t1),
+                          "events_ms": start.elapsed_time(end)})
+    ahead = sorted(r["events_ms"] - r["dispatch_ms"] for r in sync_rows)[len(sync_rows) // 2]
+    log(f"phase 14c: e2e loop, B=8: {json.dumps(sync_rows)}; the step's call returns "
+        f"{ahead:.3f} ms (median) before its events close, so the next batch's synchronous "
+        "index upload can wait at most that long")
+    del su, run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    counters = {"double_conv": dcm.fused_double_conv, "gwnet_stack": gsm.gwnet_stack_forward,
+                "max_pool_fwd": mp.max_pool_forward, "max_pool_bwd": mp.max_pool_backward,
+                "gwnet_layer": glm.gwnet_layer_forward, "dcrnn_stack": dsm.dcrnn_stack_forward}
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    results, walls = {}, {}
+    try:
+        for c in counters.values():
+            c.launches = 0
+        for name, steps in BENCH_STEPS.items():
+            t0 = time.perf_counter()
+            out = bm.run_benchmark(name, steps=steps)
+            walls[name] = time.perf_counter() - t0
+            log(f"phase 14d: bench --config {name} --steps {steps} {json.dumps(out)}; "
+                f"{walls[name]:.1f} s")
+            results[name] = out
+            bad = _bench_line_faults(out, BENCH_DETAIL[name])
+            if bad:
+                failures.append(f"14d {name}: {bad}")
+            gc.collect()
+            torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in counters.items()}
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"phase 14d: kernel launches of the configs {json.dumps(launches)}")
+    if not all(launches.values()):
+        failures.append(f"14d: a kernel was not launched: {launches}")
+
+    dev = torch.device("cuda")
+    holds = {}
+    for b in (1, 16):
+        for name, make in (("gwnet_stack", bm.gwnet_stack_fns), ("dcrnn_stack", bm.dcrnn_stack_fns)):
+            fns, x, c_in, cores = make(b)
+            err, ok, _ = compare(fns["stack"](), fns["module"]())
+            chains = {k: bm._chained(core, x, c_in, dev)() for k, core in cores.items()}
+            err_c, ok_c, _ = compare(chains["stack"], chains["module"])
+            holds[f"{name}_b{b}"] = {"max_abs_err": err, "chain_max_abs_err": err_c}
+            if not (ok and ok_c):
+                failures.append(f"14e {name} B={b}: kernel vs module {err}, chains {err_c}")
+            del fns, cores, chains
+        fns = bm.gwnet_forecast_fns(b)
+        err, ok, _ = compare(fns["pallas"](), fns["module"]())
+        holds[f"gwnet_forecast_b{b}"] = {"max_abs_err": err}
+        if not ok:
+            failures.append(f"14e gwnet_forecast B={b}: kernel 3 vs module {err}")
+    fns, x, g = bm.iso_pool_fns()
+    xd = x.detach()
+    fwd_err = float((mp.max_pool_forward(xd).float()
+                     - max_pool_2x2(xd, "reduce_window").float()).abs().max())
+    dx = fns["iso_pallas"]()
+    bwd_err = float((dx.float() - mp.max_pool_backward_reference(xd, g).float()).abs().max())
+    ties = int((dx != fns["iso_reduce_window"]()).sum())
+    holds["iso_pool"] = {"fwd_vs_max_pool2d": fwd_err, "bwd_vs_plain": bwd_err,
+                         "bwd_entries_routed_elsewhere_by_max_pool2d": ties}
+    if fwd_err or bwd_err:
+        failures.append(f"14e iso pool: forward {fwd_err}, backward {bwd_err}")
+    del fns, x, g, xd, dx
+    log(f"phase 14e: A/B pairs held {json.dumps(holds)}")
+    if failures:
+        raise RuntimeError("phase 14: " + "\n".join(failures))
+    return {"phase_s": time.perf_counter() - t_phase, "e2e": e2e, "e2e_over_phase5": ratio,
+            "batch_scaling": bs["detail"], "host_ahead_ms": ahead,
+            "sync_rows": sync_rows, "configs": {k: v["value"] for k, v in results.items()},
+            "walls": walls, "holds": holds, "launches": launches}
+
+
 def by_supports(rows, b):
     """Phase 9c's S = 1 and S = 3 rows of a kernel for the kernels line:
     each S's largest error over both dtypes and its bf16 time at batch b
@@ -2420,6 +2634,8 @@ def main() -> int:
         log(f"phase 12: {json.dumps(p12)}")
         p13 = import_torch_end_to_end(torch, cli, dcm, gsm, mp, workdir, train_store, trained)
         log(f"phase 13: {json.dumps(p13)}")
+        p14 = bench_end_to_end(torch, F, dcm, gsm, glm, dsm, mp, train_store, trained)
+        log(f"phase 14: {json.dumps(p14)}")
 
     main_dc = [r for r in dc_rows if r["dtype"] == "bfloat16"]
     main_st = [r for r in st_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]
@@ -2433,6 +2649,7 @@ def main() -> int:
             "launches": launches["double_conv"],
             "launches_phase12": p12["c"]["serve_launches"][0],  # 12c: serve from the host path
             "launches_phase13": p13["launches"]["serve"][0],  # 13e: serve of an import
+            "launches_phase14": p14["launches"]["double_conv"],  # 14d: the bench configs
             "max_abs_err": max(r["max_abs_err"] for r in main_dc),
             "ms": sum(r["ms"] for r in main_dc),
             "plain_ms": sum(r["plain_ms"] for r in main_dc),
@@ -2447,6 +2664,7 @@ def main() -> int:
             "launches": launches["gwnet_stack"],
             "launches_phase12": p12["c"]["serve_launches"][1],
             "launches_phase13": p13["launches"]["serve"][1],
+            "launches_phase14": p14["launches"]["gwnet_stack"],
             "max_abs_err": main_st["max_abs_err"], "ms": main_st["ms"],
             "plain_ms": main_st["plain_ms"], "bound_ms": main_st["bound_ms"],
             "bound_by": main_st["bound_by"], "library_ms": None,
@@ -2468,6 +2686,7 @@ def main() -> int:
             # phase 13: (d) evaluate and (f) train --resume of an import
             "launches_phase13": {"d": p13["launches"]["evaluate_pool"][i],
                                  "f": p13["launches"]["train_pool"][i]},
+            "launches_phase14": p14["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in mp_rows if r["kernel"] == name),
             "ms": sum(r["ms"] for r in rows),
             "plain_ms": sum(r["plain_ms"] for r in rows),
@@ -2489,7 +2708,8 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"multimodal_outage_tpu_torch/csrc/{src}",
             "replaces": f"multimodal_outage_tpu/ops/{replaces}",
-            "launches": n, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "launches": n, "launches_phase14": p14["launches"][name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None, **extra,
         })

@@ -23,10 +23,12 @@
              a store (data/acquisition.py)
   ingest-monthly — attach a {county}/monthly_{Y}_{M}.npy tree to a store
              as its risk-map baseline sidecar
+  bench    — run one benchmark config (benchmarks.py) and print its
+             {"metric", "value", "unit", "vs_baseline", "detail"} line
 
-serve, train, evaluate, import-torch, pretrain-d2v, ingest and
-ingest-monthly run on the card unless --device cpu is given; without a
-card they raise rather than falling back. Every command prints one JSON
+serve, train, evaluate, import-torch, pretrain-d2v, ingest,
+ingest-monthly and bench run on the card unless --device cpu is given;
+without a card they raise rather than falling back. Every command prints one JSON
 object as its last line; train --num_runs N > 1 prints {"runs": [<run 0's
 results>, ...]}; import-torch, ingest and ingest-monthly print the JAX
 CLI's line before it.
@@ -171,6 +173,12 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None, choices=("cuda", "cpu"),
                    help="where the rasters are resized; default: cuda (raises if there "
                    "is no card)")
+
+    p = sub.add_parser("bench", help="Run one benchmark config")
+    p.add_argument("--config", type=str, default="unet_train")
+    p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--device", type=str, default=None, choices=("cuda", "cpu"),
+                   help="default: cuda (raises if there is no card)")
     return parser
 
 
@@ -526,6 +534,13 @@ def ingest_monthly_command(args: argparse.Namespace) -> Dict[str, Any]:
             "months": months.tolist()}
 
 
+def bench_command(args: argparse.Namespace) -> Dict[str, Any]:
+    """Run `bench` (JAX cli.py:594-598): one config of benchmarks.py."""
+    from multimodal_outage_tpu_torch.benchmarks import run_benchmark
+
+    return run_benchmark(args.config, steps=args.steps, device=args.device)
+
+
 def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     """Parse and run one command; returns what main prints."""
     args = _parser().parse_args(argv)
@@ -551,8 +566,8 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         return {"mean": mean, "std": std}
     return {"serve": serve_command, "train": train_command, "evaluate": evaluate_command,
             "import-torch": import_torch_command, "pretrain-d2v": pretrain_d2v_command,
-            "ingest": ingest_command,
-            "ingest-monthly": ingest_monthly_command}[args.command](args)
+            "ingest": ingest_command, "ingest-monthly": ingest_monthly_command,
+            "bench": bench_command}[args.command](args)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -1,6 +1,6 @@
 """The port's parsers against the JAX CLI's (fault C.7 of the ROADMAP):
 every option that the JAX parser takes for a command that both packages
-have (train, evaluate, serve, import-torch) parses in the port with the
+have (train, evaluate, serve, import-torch, bench) parses in the port with the
 JAX default, and the flags map onto the same Config fields as JAX
 _build_config maps them. What the port cannot run raises
 NotImplementedError, before any work: a mesh of more than one device and
@@ -18,11 +18,11 @@ from multimodal_outage_tpu import cli as jax_cli
 from multimodal_outage_tpu_torch import cli
 from multimodal_outage_tpu_torch.core.config import asdict
 
-COMMANDS = ("train", "evaluate", "serve", "import-torch")
+COMMANDS = ("train", "evaluate", "serve", "import-torch", "bench")
 # the options a command needs to parse at all
 REQUIRED = {"train": [], "evaluate": ["--checkpoint_path", "c"],
             "serve": ["--checkpoint_path", "c"],
-            "import-torch": ["--checkpoint", "r.ckpt", "--out", "o"]}
+            "import-torch": ["--checkpoint", "r.ckpt", "--out", "o"], "bench": []}
 
 
 @pytest.fixture(scope="module", autouse=True)

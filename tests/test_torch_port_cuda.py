@@ -760,3 +760,39 @@ def test_device_store_upload_is_bitwise(cuda, tmp_path):
         got = upload_frames(store.frames, cuda, chunk_bytes=chunk)
         assert got.device.type == "cuda"
         assert torch.equal(got.cpu(), torch.from_numpy(np.asarray(store.frames)))
+
+
+@pytest.mark.cuda
+def test_bench_serving_cli_on_the_card(cuda, capsys):
+    """`bench --config serving --steps 2`: the JSON line as its last line,
+    the engine's kernels 1 and 2 launched."""
+    import json
+
+    from multimodal_outage_tpu_torch import cli
+
+    dcm.fused_double_conv.launches = gsm.gwnet_stack_forward.launches = 0
+    assert cli.main(["bench", "--config", "serving", "--steps", "2"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["metric"] == "serving_engine_latency" and out["value"] > 0
+    assert set(out["detail"]) == {"module_eval_ms", "speedup_vs_module",
+                                  "b16_throughput_tiles_per_sec"}
+    assert dcm.fused_double_conv.launches > 0 and gsm.gwnet_stack_forward.launches > 0
+
+
+@pytest.mark.cuda
+def test_bench_dcrnn_stack_on_the_card(cuda):
+    """run_benchmark("dcrnn_stack"): kernel 5 launched, every latency and
+    chained device time positive, and the pair it times one function:
+    kernel 5 against the module, float32, at B=1."""
+    from multimodal_outage_tpu_torch import benchmarks as bm
+
+    dsm.dcrnn_stack_forward.launches = 0
+    out = bm.run_benchmark("dcrnn_stack", steps=3)
+    assert dsm.dcrnn_stack_forward.launches > 0
+    assert out["metric"] == "dcrnn_stack_forecast_latency"
+    assert len(out["detail"]) == 8 and all(v > 0 for v in out["detail"].values())
+    fns, x, c_in, cores = bm.dcrnn_stack_fns(1)
+    want = fns["module"]()
+    _assert_kernel_matches(fns["stack"](), want, want)
+    chained = bm._chained(cores["stack"], x, c_in, cuda)()
+    _assert_kernel_matches(chained[..., :want.shape[-1]], want, want)

@@ -32,8 +32,14 @@ and `serve` of it equal to the same variables written directly, `train
 (phase 14: every ported config of benchmarks.py through run_benchmark,
 `bench --config e2e_train` through the CLI, two batch_scaling cells in
 processes of their own, and the A/B pairs that put a kernel against its
-module held to the port's bars), and checks that each path went through
-its kernels.
+module held to the port's bars), runs the mesh (phase 15: ranks sharing
+the card over gloo; float32 steps on 2x1x1, 1x2x1 and 1x1x7 and the
+padded ragged tail against the one-rank step, kernel 3 under a mesh,
+bf16 `train` on each mesh with a resume across meshes, `evaluate` and
+`serve` on 2x1x1 against one device, `bench sharded_pipeline` /
+`serving_sharded` on an NCCL group of one, two host processes through
+`--coordinator_address`), and checks that each path went through its
+kernels.
 
     python3 chip_smoke.py
 
@@ -163,6 +169,41 @@ BENCH_STEPS = {
     "remat_conv": 2, "roofline": 3, "serving_roofline": 5, "fused_stack": 3,
     "multimodal_fusion": 3, "grad_accum_sync": 2,
 }
+# phase 15 (the mesh on one card): ranks share cuda:0 over gloo
+# (MULTIMODAL_OUTAGE_TORCH_VIRTUAL_DEVICES). A float32 B=8 step on each
+# mesh, deterministic cuDNN, no TF32, against the one-rank step on the
+# same batch: the loss within MESH_LOSS_RTOL (JAX's 1e-5 for metrics,
+# tests/test_sharding.py:317), each BatchNorm running-stat buffer within
+# MESH_STAT_RTOL of its largest entry (JAX's 1e-4), each gradient leaf
+# (the data × time sum, before Adam) within MESH_GRAD_RTOL of its largest
+# entry (or of 1e-3 of the largest gradient of all, for leaves whose true
+# gradient is 0), as tests/test_torch_port_cuda.py holds the 2-rank step,
+# and the parameters after one Adam step within JAX's rtol 1e-2 / atol
+# 5e-4 on at least MESH_PARAM_SHARE of all entries
+# (tests/test_sharding.py:104-110). A mesh sums the gradient, on the time
+# axis the BatchNorm moments and on the model axis the bottleneck's
+# partial products, over the ranks in another order, and cuDNN runs a rank's 4 rows (or 1 frame) where one device runs 8: at full
+# width that alone moves a weight gradient by ~3e-3 of its leaf (phase
+# 11b's finding, and 15a's first reading: 2.3e-3 / 2.9e-3 / 2.9e-3 for
+# 2x1x1 / 1x2x1 / 1x1x7), so these steps' gradients are held as phase
+# 11b holds the accumulating step's: against the one-rank step with cuDNN
+# off (native convolutions, float32 GEMMs), the mesh step may be at most
+# MESH_GRAD_RATIO times as far off as the one-rank step with cuDNN, plus
+# MESH_GRAD_RTOL. The padded, masked ragged tail (B=3 → 8, dropout off: a
+# padded step draws masks for 8 rows) is held to the plain B=3 step the
+# same way. The remat step (remat_scope all, 1x1x7: its recompute runs on
+# autograd's device thread) is held to the same mesh's step without
+# remat, and kernel 3 on 2x1x1 to the plain layer on 2x1x1, at the bars
+# themselves: the same sums in the same order.
+MESH_LOSS_RTOL, MESH_STAT_RTOL, MESH_GRAD_RTOL, MESH_PARAM_SHARE = 1e-5, 1e-4, 1e-4, 0.99
+MESH_GRAD_RATIO = ACCUM_RATIO
+# phase 15c: evaluate on 2x1x1 against phase 7's one-device evaluate: the
+# same module at the same dtype, a rank's eval forward taking 4 rows where
+# one device takes 8 (cuDNN may round bf16 differently; 4.1e-7 measured on
+# the H100 80GB HBM3 at 700 W), so 1e-5; serve (the module path on a
+# mesh) against phase 7's serve (the folded-BN engine) at phase 7b's
+# SERVE_RTOL
+MESH_EVAL_RTOL = 1e-5
 _THROUGHPUT = {"step_seconds", "tiles_per_step", "tiles_per_sec", "batch", "image_size"}
 _ROOF = {"device_kind", "gflops_per_step", "gbytes_per_step", "measured_ms",
          "tensor_floor_ms", "hbm_floor_ms", "bound", "arithmetic_intensity"}
@@ -899,7 +940,7 @@ def checkpoint_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, store_dir, tra
         log(f"phase {name} from a checkpoint: p50 {out['latency']['p50_ms']:.3f} ms "
             f"p90 {out['latency']['p90_ms']:.3f} ms")
     return {"evaluate_s": wall, "evaluate_forwards": ev["forwards"], "round_trip_gap": gap,
-            "serve_gaps": gaps}
+            "serve_gaps": gaps, "evaluate_metrics": ev["metrics"], "serve_metrics": sv["metrics"]}
 
 
 def step_busy_share(torch, store_dir, steps=3, **model_kw):
@@ -2526,6 +2567,347 @@ def bench_end_to_end(torch, F, dcm, gsm, glm, dsm, mp, train_store, trained):
             "walls": walls, "holds": holds, "launches": launches}
 
 
+def _p15_steps(mesh, store_dir, variables, cases, seed):
+    """Phase 15a/15b rank entry: the float32 train step of each case (key,
+    mesh shape, ModelConfig fields, rows of phase 5's first batch, padded
+    batch size) on this world's ranks; rank 0 returns {key: (loss, BN
+    stats, full params, each rank's kernel 3 launches, the full summed
+    gradients before Adam's step)}."""
+    import torch
+    import torch.distributed as dist
+
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.config import ModelConfig
+    from multimodal_outage_tpu_torch.core.mesh import Mesh, MeshShape
+    from multimodal_outage_tpu_torch.models.fusion import build_model
+    from multimodal_outage_tpu_torch.ops import gwnet_layer as glm
+    from multimodal_outage_tpu_torch.parallel import sharding
+    from multimodal_outage_tpu_torch.train.state import create_train_state
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    _, full = train_batch(torch, store_dir)
+    sup = torch.eye(67, device=mesh.device)[None]
+    out = {}
+    for key, shape, model_kw, rows, bsize in cases:
+        shape = MeshShape(*shape)
+        m = mesh if shape == mesh.shape else Mesh(shape, mesh.device)
+        cfg = ModelConfig(compute_dtype="float32", **model_kw)
+        model = weights.load_variables(build_model(cfg, 7, 67, 128), variables)
+        sharding.shard_model(model, m)
+        model.to(m.device)
+        batch = {k: v[:rows].float() if k != "date_feats" else v[:rows]
+                 for k, v in full.items()}
+        part = sharding.shard_batch(m, sharding.pad_batch(
+            {k: v.cpu().numpy() for k, v in batch.items()}, bsize))
+        before = glm.gwnet_layer_forward.launches
+        metrics = sharding.make_sharded_train_step(model, m)(
+            create_train_state(model), part, sup, LR, seed)
+        torch.cuda.synchronize()
+        launched = torch.zeros(m.shape.size, device=m.device)
+        launched[m.rank] = glm.gwnet_layer_forward.launches - before
+        dist.all_reduce(launched)
+        v = weights.module_variables(model)
+        params = sharding.gather_tree(v["params"], m)
+        grads = sharding.gather_tree(weights.unflatten(_grads(torch, model)), m)
+        out[key] = (float(metrics["loss"]),
+                    {k: t.float().cpu().numpy() for k, t in weights.flatten(v["batch_stats"]).items()},
+                    {k: t.float().cpu().numpy() for k, t in weights.flatten(params).items()},
+                    launched.cpu().tolist(),
+                    {k: t.float().cpu().numpy() for k, t in weights.flatten(grads).items()})
+        del model, part
+        torch.cuda.empty_cache()
+    return out if mesh.is_main else None
+
+
+def _grads(torch, model):
+    """{leaf path: its gradient} (zeros where a leaf took none); the
+    train steps clear .grad at their start, so after a step it holds that
+    step's gradient, summed over the ranks on a mesh."""
+    return {k.replace(".", "/"): (p.grad if p.grad is not None else torch.zeros_like(p)).detach()
+            for k, p in model.named_parameters()}
+
+
+def _one_rank_step(torch, store_dir, variables, model_kw, rows, seed):
+    """The plain one-device float32 step of phase 15a's bars, on the first
+    `rows` windows of phase 5's first batch: (loss, BN stats, params,
+    None, gradients), as _p15_steps."""
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.config import ModelConfig
+    from multimodal_outage_tpu_torch.models.fusion import build_model
+    from multimodal_outage_tpu_torch.train.state import create_train_state
+    from multimodal_outage_tpu_torch.train.steps import make_train_step
+
+    _, full = train_batch(torch, store_dir)
+    batch = {k: v[:rows].float() if k != "date_feats" else v[:rows] for k, v in full.items()}
+    model = weights.load_variables(
+        build_model(ModelConfig(compute_dtype="float32", **model_kw), 7, 67, 128), variables)
+    model.cuda()
+    m = make_train_step(model)(create_train_state(model), batch,
+                               torch.eye(67, device="cuda")[None], LR, seed)
+    v = weights.module_variables(model)
+    out = (float(m["loss"]),
+           {k: t.float().cpu().numpy() for k, t in weights.flatten(v["batch_stats"]).items()},
+           {k: t.float().cpu().numpy() for k, t in weights.flatten(v["params"]).items()},
+           None, {k: t.float().cpu().numpy() for k, t in _grads(torch, model).items()})
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_gaps(got, want):
+    """(loss rel, worst BN buffer rel to its largest entry, worst param
+    |Δ|, share of param entries within JAX's rtol 1e-2 / atol 5e-4, worst
+    gradient leaf rel to max(its largest entry, 1e-3 of the largest
+    gradient of all))."""
+    import numpy as np
+
+    loss = abs(got[0] - want[0]) / abs(want[0])
+    stat = max(float(np.abs(got[1][k] - w).max()) / max(float(np.abs(w).max()), 1e-12)
+               for k, w in want[1].items())
+    worst, inside, total = 0.0, 0, 0
+    for k, w in want[2].items():
+        d = np.abs(got[2][k] - w)
+        worst = max(worst, float(d.max()))
+        inside += int(np.sum(d <= 5e-4 + 1e-2 * np.abs(w)))
+        total += d.size
+    g_all = max(float(np.abs(w).max()) for w in want[4].values())
+    grad = max(float(np.abs(got[4][k] - w).max())
+               / max(float(np.abs(w).max()), 1e-3 * g_all, 1e-30)
+               for k, w in want[4].items())
+    return loss, stat, worst, inside / total, grad
+
+
+def _mesh_ok(g, vs_native=None):
+    """Phase 15a's bars (MESH_* above) on _mesh_gaps `g`. vs_native: the
+    worst gradient leaf of the mesh step and of the one-rank step, each
+    against the one-rank step with cuDNN off; the gradient bar is then
+    MESH_GRAD_RATIO times the one-rank step's plus MESH_GRAD_RTOL. The
+    worst parameter |Δ| is reported only: Adam's first step moves an entry
+    by at most lr, whatever its gradient, so no bar on it could fail."""
+    grad_ok = (g[4] <= MESH_GRAD_RTOL if vs_native is None
+               else vs_native[0] <= MESH_GRAD_RATIO * vs_native[1] + MESH_GRAD_RTOL)
+    return (g[0] <= MESH_LOSS_RTOL and g[1] <= MESH_STAT_RTOL and grad_ok
+            and g[3] >= MESH_PARAM_SHARE)
+
+
+def _with_virtual(n, fn, *a, **kw):
+    """fn(*a, **kw) with MULTIMODAL_OUTAGE_TORCH_VIRTUAL_DEVICES=n."""
+    from multimodal_outage_tpu_torch.core.mesh import VIRTUAL_DEVICES_ENV
+
+    old = os.environ.get(VIRTUAL_DEVICES_ENV)
+    os.environ[VIRTUAL_DEVICES_ENV] = str(n)
+    try:
+        return fn(*a, **kw)
+    finally:
+        if old is None:
+            os.environ.pop(VIRTUAL_DEVICES_ENV, None)
+        else:
+            os.environ[VIRTUAL_DEVICES_ENV] = old
+
+
+def mesh_steps_end_to_end(torch, train_store):
+    """Phases 15a and 15b's float32 steps (MESH_* bars), ranks sharing
+    cuda:0 over gloo: B=8 on 2x1x1, 1x2x1 and 1x1x7 and the padded ragged
+    tail against the one-rank step, their gradients also against the
+    one-rank step without cuDNN; remat_scope all on 1x1x7 against the
+    same mesh without remat; 2x1x1 with the per-layer Graph WaveNet kernel
+    (kernel 3) against the plain layer on the same mesh, with its launches
+    per rank. Raises when a step misses its bars."""
+    from multimodal_outage_tpu_torch import weights
+    from multimodal_outage_tpu_torch.core.config import ModelConfig
+    from multimodal_outage_tpu_torch.core.mesh import MeshShape
+    from multimodal_outage_tpu_torch.parallel import launch
+
+    out = {}
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False  # as in the ranks (_p15_steps)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    variables = weights.init_variables(ModelConfig(), 7, 67, seed=3)
+    no_drop = {"encoder_dropout": 0.0}
+    plain3 = {**no_drop, "gwnet": _gwnet_cfg(dropout=0.0)}
+    pallas = {"gwnet": _gwnet_cfg(use_pallas=True)}
+    cases2 = [("2x1x1", (2, 1, 1), {}, 8, 8), ("1x2x1", (1, 2, 1), {}, 8, 8),
+              ("ragged", (2, 1, 1), plain3, 3, 8), ("pallas", (2, 1, 1), pallas, 8, 8)]
+    cases7 = [("1x1x7", (1, 1, 7), {}, 8, 8),
+              ("remat", (1, 1, 7), {"remat": True, "remat_scope": "all"}, 8, 8)]
+    t0 = time.perf_counter()
+    got = launch.run(_p15_steps, MeshShape(2, 1, 1), "cuda", (train_store, variables, cases2, 0))
+    t2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got.update(launch.run(_p15_steps, MeshShape(1, 1, 7), "cuda",
+                          (train_store, variables, cases7, 0)))
+    t7 = time.perf_counter() - t0
+    refs, native = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for rows, kw in ((8, {}), (3, plain3)):
+            refs[rows] = _one_rank_step(torch, train_store, variables, kw, rows, 0)
+        torch.backends.cudnn.enabled = False
+        for rows, kw in ((8, {}), (3, plain3)):
+            native[rows] = _one_rank_step(torch, train_store, variables, kw, rows, 0)
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.enabled = True
+    e_one = {rows: _mesh_gaps(refs[rows], native[rows])[4] for rows in refs}
+    failures = []
+    for key, rows, what in (("2x1x1", 8, "one rank"), ("1x2x1", 8, "one rank"),
+                            ("1x1x7", 8, "one rank"), ("ragged", 3, "one rank, B=3"),
+                            ("remat", None, "1x1x7 without remat"),
+                            ("pallas", None, "the plain layer on 2x1x1")):
+        want = refs[rows] if rows else got["1x1x7" if key == "remat" else "2x1x1"]
+        g = _mesh_gaps(got[key], want)
+        vs = (_mesh_gaps(got[key], native[rows])[4], e_one[rows]) if rows else None
+        ok = _mesh_ok(g, vs)
+        log(f"phase 15{'b' if key == 'pallas' else 'a'}: {key} float32 step vs {what}: loss rel "
+            f"{g[0]:.3g}, worst BN buffer rel {g[1]:.3g}, worst gradient leaf rel {g[4]:.3g}"
+            + (f" (against the one-rank step without cuDNN {vs[0]:.3g}, the one-rank step's "
+               f"own {vs[1]:.3g})" if vs else "")
+            + f", worst param |Δ| {g[2]:.3g}, {100 * g[3]:.3f}% of entries within rtol "
+            f"1e-2/atol 5e-4; ok {ok}")
+        out[key] = {"gaps": list(g), "grad_vs_native": list(vs) if vs else None, "ok": ok}
+        if not ok:
+            failures.append(key)
+    log(f"phase 15a: worlds: 2 ranks {t2:.1f} s, 7 ranks {t7:.1f} s wall")
+    launches = got["pallas"][3]
+    log(f"phase 15b: kernel 3 launches per rank under 2x1x1 {launches} (8 per step)")
+    if launches != [8.0, 8.0] or got["2x1x1"][3] != [0.0, 0.0]:
+        failures.append(f"kernel 3 launches {launches}, plain {got['2x1x1'][3]}")
+    out["kernel3_launches_per_rank"] = launches
+    if failures:
+        raise RuntimeError(f"phase 15a/b: mesh steps off their bars: {failures}")
+    return out
+
+
+def mesh_end_to_end(torch, cli, workdir, train_store, trained, p7):
+    """Phase 15: the mesh on the one card at full width. Ranks share
+    cuda:0 over gloo (the virtual-device variable); time on a shared card
+    is not multi-card scaling (the ranks take turns on it, gloo stages
+    every CUDA collective through the host). (a, b) the float32 steps of
+    mesh_steps_end_to_end; bf16 `train` of phase 5's store on 1x2x1,
+    resumed on 2x1x1 (d: a checkpoint written on one mesh resumes on
+    another), and on 1x1x7: step p50, peak memory and collective seconds
+    per rank. (c) evaluate and serve of phase 5's checkpoint on 2x1x1
+    against one device (phase 7's numbers), 18 windows after the trim. (e)
+    bench sharded_pipeline and serving_sharded on an NCCL group of one
+    rank. (f) two host processes (--coordinator_address) against one
+    process of two ranks."""
+    import subprocess
+
+    from multimodal_outage_tpu_torch.parallel import launch
+
+    out = mesh_steps_end_to_end(torch, train_store)
+
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    common = ["--data_dir", train_store, "--case", "michael", "--dataset_range", str(TRAIN_MARGIN),
+              "--batch_size", "8"]
+    try:
+        fits = {}
+        for key, n, flags in (("1x2x1", 2, ["--mesh_data", "1", "--mesh_model", "2",
+                                             "--epochs", "1", "--job_id", "mesh"]),
+                              ("2x1x1", 2, ["--mesh_data", "2", "--epochs", "2", "--resume",
+                                            "--job_id", "mesh"]),
+                              ("1x1x7", 7, ["--mesh_data", "1", "--mesh_time", "7",
+                                            "--epochs", "1", "--job_id", "mesh7"])):
+            t0 = time.perf_counter()
+            res = _with_virtual(n, cli.run, ["train", *common, "--seed", "0", *flags])
+            wall = time.perf_counter() - t0
+            finals = [res[f"{p}_{m}"] for p in ("val", "test") for m in METRICS]
+            ranks = res["ranks"]
+            log(f"phase 15a: train bf16 on {key}: step p50 {res.get('train_step_ms_p50', 0):.3f} "
+                f"ms (rank 0; phase 5 one device {trained['train_step_ms_p50']:.3f} ms); peak "
+                f"memory per rank {[round(r['peak_mem_mb']) for r in ranks]} MiB; host s in "
+                f"collectives per rank {[round(r['collective_s'], 3) for r in ranks]}; "
+                f"train_steps {res['train_steps']}; {wall:.1f} s wall; test_loss "
+                f"{res['test_loss']!r}")
+            if res["mesh"] != key or not all(math.isfinite(v) for v in finals):
+                raise RuntimeError(f"phase 15a: train on {key}: {res}")
+            fits[key] = {k: res[k] for k in ("train_step_ms_p50", "train_steps", "test_loss")
+                         if k in res}
+            fits[key]["ranks"] = ranks
+        rows = [json.loads(x) for x in open(os.path.join("logs", "mesh", "metrics.jsonl"))]
+        epochs = [r["epoch"] for r in rows if r["phase"] == "val"]
+        log(f"phase 15d: a checkpoint written on 1x2x1 resumed on 2x1x1: val epochs {epochs}, "
+            f"global step {fits['2x1x1']['train_steps']}")
+        if epochs != [0, 1] or fits["2x1x1"]["train_steps"] != 2 * fits["1x2x1"]["train_steps"]:
+            raise RuntimeError(f"phase 15d: resume across meshes: epochs {epochs}, {fits}")
+        out["fits"] = fits
+
+        ckpt = os.path.join(workdir, "logs", "smoke", "checkpoints")
+        ev = _with_virtual(2, cli.run, ["evaluate", "--checkpoint_path", ckpt, *common,
+                                        "--mesh_data", "2"])
+        sv = _with_virtual(2, cli.run, ["serve", "--checkpoint_path", ckpt, *common,
+                                        "--mesh_data", "2", "--latency_stats"])
+        gaps = {"evaluate": max(abs(ev["metrics"][k] - p7["evaluate_metrics"][k])
+                                / abs(p7["evaluate_metrics"][k]) for k in ("loss", "mae", "rmse")),
+                "serve": max(abs(sv["metrics"][k] - p7["serve_metrics"][k])
+                             / abs(p7["serve_metrics"][k]) for k in ("loss", "mae", "rmse"))}
+        log(f"phase 15c: evaluate on 2x1x1 {json.dumps(ev)}; serve on 2x1x1 {json.dumps(sv)}; "
+            f"largest relative gaps to one device (phase 7) {json.dumps(gaps)}")
+        if ev["windows"] != 18 or gaps["evaluate"] > MESH_EVAL_RTOL or gaps["serve"] > SERVE_RTOL:
+            raise RuntimeError(f"phase 15c: {ev['windows']} windows, gaps {gaps}")
+        out["eval_serve_gaps"] = gaps
+
+        benches = {}
+        for name in ("sharded_pipeline", "serving_sharded"):
+            t0 = time.perf_counter()
+            b = cli.run(["bench", "--config", name, "--steps", "3"])
+            benches[name] = b
+            log(f"phase 15e: bench --config {name} (an NCCL group of one rank): "
+                f"{json.dumps(b)}; {time.perf_counter() - t0:.1f} s wall")
+            if not (b["value"] > 0 and b["detail"]["devices"] == torch.cuda.device_count()):
+                raise RuntimeError(f"phase 15e: {name}: {b}")
+        out["bench"] = {k: v["value"] for k, v in benches.items()}
+
+        small = ["train", "--data_dir", train_store, "--case", "michael", "--dataset_range", "8",
+                 "--batch_size", "2", "--seed", "0", "--epochs", "1", "--mesh_data", "2"]
+        one = _with_virtual(2, cli.run, [*small, "--job_id", "hosts_one"])
+        port = launch._free_port()
+        env = {**os.environ, "MULTIMODAL_OUTAGE_TORCH_VIRTUAL_DEVICES": "1",
+               "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, "-m", "multimodal_outage_tpu_torch", *small,
+                                   "--job_id", "hosts_two", "--coordinator_address",
+                                   f"127.0.0.1:{port}", "--num_processes", "2",
+                                   "--process_id", str(i)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                  env=env)
+                 for i in range(2)]
+        two = []
+        try:
+            for p in procs:
+                so, se = p.communicate(timeout=300)
+                if p.returncode != 0:
+                    raise RuntimeError(f"phase 15f: a host process exited {p.returncode}: "
+                                       f"{se[-2000:]}")
+                two.append(json.loads(so.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        keys = [f"{p}_{m}" for p in ("val", "test") for m in METRICS] + ["train_steps"]
+        same = all(t[k] == one[k] for t in two for k in keys)
+        log(f"phase 15f: two host processes (--coordinator_address, one rank each on the "
+            f"shared card) {time.perf_counter() - t0:.1f} s wall: test_loss "
+            f"{[t['test_loss'] for t in two]} vs one process of two ranks {one['test_loss']!r}; "
+            f"equal {same}")
+        if not same:
+            raise RuntimeError(f"phase 15f: {two} vs {one}")
+        out["hosts_equal"] = same
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def _gwnet_cfg(**kw):
+    """GWNetConfig(**kw), phase 15's model variants."""
+    from multimodal_outage_tpu_torch.core.config import GWNetConfig
+
+    return GWNetConfig(**kw)
+
+
 def by_supports(rows, b):
     """Phase 9c's S = 1 and S = 3 rows of a kernel for the kernels line:
     each S's largest error over both dtypes and its bf16 time at batch b
@@ -2636,6 +3018,9 @@ def main() -> int:
         log(f"phase 13: {json.dumps(p13)}")
         p14 = bench_end_to_end(torch, F, dcm, gsm, glm, dsm, mp, train_store, trained)
         log(f"phase 14: {json.dumps(p14)}")
+        t15 = time.perf_counter()
+        p15 = mesh_end_to_end(torch, cli, workdir, train_store, trained, p7)
+        log(f"phase 15: {json.dumps(p15)}; {time.perf_counter() - t15:.1f} s")
 
     main_dc = [r for r in dc_rows if r["dtype"] == "bfloat16"]
     main_st = [r for r in st_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]
@@ -2700,7 +3085,9 @@ def main() -> int:
     # longer than the kernel, so its back-to-back `ms` times the host
     for name, src, replaces, n, row, extra in (
         ("gwnet_layer", "gwnet_layer.cu", "gwnet_pallas.py:187", layer_launches, main_gl,
-         {"device_ms": main_gl["device_ms"], **by_supports(gl9_rows, 8)}),
+         {"device_ms": main_gl["device_ms"], **by_supports(gl9_rows, 8),
+          # 15b: one 2x1x1 step, launches on each rank (its own process)
+          "launches_phase15_per_rank": p15["kernel3_launches_per_rank"]}),
         ("dcrnn_stack", "dcrnn_stack.cu", "dcrnn_stack_pallas.py:169", dcrnn_launches, main_ds,
          {}),
     ):

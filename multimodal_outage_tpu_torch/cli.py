@@ -35,11 +35,13 @@ CLI's line before it.
 
 train, evaluate, serve and import-torch take every flag that the JAX
 CLI's command of the same name takes, with its defaults, into the same
-Config fields. What the port cannot run raises NotImplementedError rather
-than being ignored: a mesh of more than one device (--mesh_data,
---mesh_model, --mesh_time; train/loop.py check_supported) and
-multi-process training (--coordinator_address, --num_processes > 1,
---process_id > 0).
+Config fields. --mesh_data, --mesh_model and --mesh_time run train,
+evaluate and serve on a mesh of ranks (core/mesh.py; the ranks are
+started by parallel/launch.py, rank 0's result is printed), with
+--shard_store splitting the device store's dates over the data ranks;
+train's --coordinator_address host:port --num_processes P --process_id i
+makes this process start its host's ranks of a P-host run
+(core/mesh.py initialize_distributed).
 """
 
 from __future__ import annotations
@@ -117,11 +119,11 @@ def _parser() -> argparse.ArgumentParser:
                    help="partition the device frame store over the data mesh axis; on one "
                    "device that partition is the whole store, as in the JAX package")
     p.add_argument("--coordinator_address", type=str, default=None,
-                   help="multi-process training: not in the port yet (raises)")
+                   help="multi-host: host:port where the processes' ranks meet")
     p.add_argument("--num_processes", type=int, default=None,
-                   help="multi-process training: more than 1 raises")
+                   help="multi-host: the number of processes (hosts)")
     p.add_argument("--process_id", type=int, default=None,
-                   help="multi-process training: more than 0 raises")
+                   help="multi-host: this process's index")
 
     p = sub.add_parser("evaluate", help="Sweep a held-out hurricane with a checkpoint")
     p.add_argument("--checkpoint_path", type=str, required=True,
@@ -274,9 +276,8 @@ def _model_flags(p: argparse.ArgumentParser) -> None:
 
 def _mesh_flags(p: argparse.ArgumentParser) -> None:
     """The JAX CLI's mesh axes (its _add_mesh_flags, cli.py:143-158), which
-    train, evaluate and serve take. The port runs on one device: a mesh
-    of more than one raises NotImplementedError (train/loop.py
-    check_supported)."""
+    train, evaluate and serve take; a mesh of more than one device runs
+    on ranks (core/mesh.py)."""
     p.add_argument("--mesh_data", type=int, default=-1,
                    help="data-parallel axis (-1: every device left over, one on one card)")
     p.add_argument("--mesh_model", type=int, default=1,
@@ -351,14 +352,13 @@ def train_command(args: argparse.Namespace) -> Dict[str, Any]:
     from multimodal_outage_tpu_torch.core.device import resolve_device
     from multimodal_outage_tpu_torch.train.loop import fit
 
-    if (args.coordinator_address is not None or (args.num_processes or 1) > 1
-            or (args.process_id or 0) > 0):
-        raise NotImplementedError(
-            "multi-process training (--coordinator_address, --num_processes, "
-            "--process_id): not in the port yet; it comes with the ROADMAP item "
-            "'SPMD with sample_weight'"
-        )
     device = resolve_device(args.device)  # fail before any work
+    if args.coordinator_address:
+        from multimodal_outage_tpu_torch.core.mesh import initialize_distributed
+
+        n = initialize_distributed(args.coordinator_address, args.num_processes,
+                                   args.process_id, device.type)
+        print(f"distributed: {n} global devices")
     cfg = _config(args)
     if args.num_runs == 1:
         return fit(cfg, test_case=args.case, device=device)
@@ -425,26 +425,44 @@ def serve_command(args: argparse.Namespace) -> Dict[str, Any]:
     """Run `serve`; returns the JSON-able result (metrics, latency,
     forwards, device). The engine is built over the supports of the
     flags' adjtype, addaptadj and adjacency; --d2v_bundle replaces the
-    Date2Vec of --seed's or --weights' variables, not a checkpoint's."""
-    import numpy as np
-
-    from multimodal_outage_tpu_torch.core.checkpoint import (
-        require_checkpoints,
-        restore_variables,
-    )
+    Date2Vec of --seed's or --weights' variables, not a checkpoint's.
+    With a mesh of more than one device, every rank serves its part
+    (ServingModel(mesh=)) and rank 0's result is returned."""
+    from multimodal_outage_tpu_torch.core.checkpoint import require_checkpoints
     from multimodal_outage_tpu_torch.core.device import resolve_device
-    from multimodal_outage_tpu_torch.data.adjacency import config_supports
-    from multimodal_outage_tpu_torch.data.store import load_store
-    from multimodal_outage_tpu_torch.serving import ServingModel, serve_eval
-    from multimodal_outage_tpu_torch.train.date2vec_pretrain import install_bundle, load_bundle
-    from multimodal_outage_tpu_torch.train.loop import check_supported
-    from multimodal_outage_tpu_torch.weights import init_variables, load_npz
+    from multimodal_outage_tpu_torch.train.loop import check_supported, resolve_mesh
 
     if args.checkpoint_path is not None:
         require_checkpoints(args.checkpoint_path)
     cfg = _config(args)
     check_supported(cfg)
     device = resolve_device(args.device)  # fail before any work
+    shape = resolve_mesh(cfg, device.type)
+    if shape is None:
+        return _serve(args, device)
+    from multimodal_outage_tpu_torch.parallel import launch
+
+    return launch.run(_serve_rank, shape, device.type, (args,))
+
+
+def _serve_rank(mesh, args: argparse.Namespace) -> Optional[Dict[str, Any]]:
+    from multimodal_outage_tpu_torch.core.mesh import torchrun_env
+
+    out = _serve(args, mesh.device, mesh)
+    return out if mesh.is_main or torchrun_env() else None
+
+
+def _serve(args: argparse.Namespace, device, mesh=None) -> Dict[str, Any]:
+    import numpy as np
+
+    from multimodal_outage_tpu_torch.core.checkpoint import restore_variables
+    from multimodal_outage_tpu_torch.data.adjacency import config_supports
+    from multimodal_outage_tpu_torch.data.store import load_store
+    from multimodal_outage_tpu_torch.serving import ServingModel, serve_eval
+    from multimodal_outage_tpu_torch.train.date2vec_pretrain import install_bundle, load_bundle
+    from multimodal_outage_tpu_torch.weights import init_variables, load_npz
+
+    cfg = _config(args)
     store = load_store(args.data_dir)
     if args.checkpoint_path is not None:
         # the best step's params and batch_stats (JAX train/loop.py:773-848)
@@ -461,7 +479,7 @@ def serve_command(args: argparse.Namespace) -> Dict[str, Any]:
     # the supports predict builds for the same Config
     serve = ServingModel(
         cfg.model, variables, config_supports(cfg, store), horizon=args.horizon,
-        device=device,
+        device=device, mesh=mesh,
     )
     preds: Optional[List[np.ndarray]] = [] if args.save_preds else None
     metrics, latency, forwards = serve_eval(
@@ -473,7 +491,7 @@ def serve_command(args: argparse.Namespace) -> Dict[str, Any]:
                            "device": device.type}
     if latency:
         out["latency"] = latency
-    if args.save_preds:
+    if args.save_preds and (mesh is None or mesh.is_main):
         os.makedirs(args.save_preds, exist_ok=True)
         np.save(os.path.join(args.save_preds, "preds.npy"), np.concatenate(preds))
         out["save_preds"] = args.save_preds

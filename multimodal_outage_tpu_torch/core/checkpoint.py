@@ -10,7 +10,9 @@ Two stores under the checkpoint directory, each a directory of
            (restore_latest)
 A tree is nested dicts of tensors and Python numbers; tensors are saved
 from the CPU. The stores are created by the first save: reading a
-directory never writes to it.
+directory never writes to it. A mesh run (train/loop.py) saves the full
+tree, gathered from the ranks' tensor-parallel shards, from rank 0, and
+every rank waits for it; any mesh, or one device, restores it.
 """
 
 from __future__ import annotations

@@ -142,8 +142,8 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh axes (JAX core/config.py:215-222); the port runs one
-    device, so only the single-device settings are accepted by fit."""
+    """Device-mesh axes (JAX core/config.py:215-222), resolved by
+    core/mesh.py mesh_from_config: data -1 takes every device left over."""
 
     data: int = -1
     model: int = 1

@@ -81,19 +81,35 @@ def gather_windows(
     A frame_transform replaces Resize + Normalize; its `x` is cast all
     the same, as the JAX device gather casts it."""
     b = pos.shape[0]
+    raw = frames.index_select(0, pos.reshape(-1))  # [B·2h, N, H, W]
+    return layout_windows(raw, b, date_feats, mean, std, horizon, image_size, dtype,
+                          frame_transform)
+
+
+def layout_windows(
+    raw: torch.Tensor,  # [B·2·horizon, N, H, W] gathered frames, past then future per row
+    b: int,
+    date_feats: torch.Tensor,
+    mean: torch.Tensor,
+    std: torch.Tensor,
+    horizon: int,
+    image_size: int,
+    dtype: torch.dtype,
+    frame_transform: Optional[FrameTransform] = None,
+) -> Dict[str, torch.Tensor]:
+    """gather_windows after its gather: the [B,T,N,…]→[B,N,T,…] layout and
+    the transform of each row's past (x, in dtype) and future (y)."""
     tf = frame_transform or partial(
         default_frame_transform, mean=mean, std=std, image_size=image_size
     )
+    rows = raw.reshape(b, 2 * horizon, *raw.shape[1:])
 
-    def window(p: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
-        win = frames.index_select(0, p.reshape(-1))  # [B·h, N, H, W]
-        n, h, w = win.shape[1:]
-        win = win.reshape(b, horizon, n, h, w).permute(0, 2, 1, 3, 4)
-        return tf(win).to(out_dtype).contiguous()
+    def window(win: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
+        return tf(win.permute(0, 2, 1, 3, 4)).to(out_dtype).contiguous()
 
     return {
-        "x": window(pos[:, :horizon], dtype),
-        "y": window(pos[:, horizon:], torch.float32),
+        "x": window(rows[:, :horizon], dtype),
+        "y": window(rows[:, horizon:], torch.float32),
         "date_feats": date_feats,
     }
 
@@ -120,7 +136,18 @@ def upload_frames(src: np.ndarray, device: torch.device, chunk_bytes: int = 256 
 
 class DevicePipeline:
     """Keeps the packed frame store on the device; batches are device
-    gathers driven by small host index arrays."""
+    gathers driven by small host index arrays.
+
+    With a mesh (core/mesh.py, JAX pipeline.py:135-230) batch() takes the
+    global (padded) index batch and gives this rank its rows and T slice,
+    gathering only those. shard_store: each rank holds only its data
+    coordinate's block of the date axis, D/dp dates (the axis padded to a
+    multiple of dp with zero dates no window reads, JAX :181), uploaded
+    from the memmap's rows alone; a batch then gathers every row's
+    frames (this rank's T slice) from the local block, zero where a date
+    lies outside it, sums the raw frames over the data group (each date
+    is held by one rank, so the sum is the frame, bitwise) and keeps its
+    rows."""
 
     def __init__(
         self,
@@ -131,9 +158,26 @@ class DevicePipeline:
         dtype: torch.dtype,
         device: torch.device,
         frame_transform: Optional[FrameTransform] = None,
+        mesh=None,
+        shard_store: bool = False,
     ):
         self.device = torch.device(device)
-        self.frames = upload_frames(store.frames, self.device)
+        self.mesh = mesh
+        self.shard = mesh is not None and shard_store and mesh.shape.data > 1
+        src = store.frames
+        if self.shard:
+            dp = mesh.shape.data
+            d_true = src.shape[0]
+            per = (d_true + (-d_true) % dp) // dp
+            self.offset = mesh.coords[0] * per
+            stop = min(self.offset + per, d_true)
+            self.frames = torch.zeros((per,) + tuple(src.shape[1:]), dtype=torch.float32,
+                                      device=self.device)
+            if stop > self.offset:
+                self.frames[: stop - self.offset] = upload_frames(src[self.offset:stop],
+                                                                  self.device)
+        else:
+            self.frames = upload_frames(src, self.device)
         # held in the compute dtype, like the JAX pipeline's mean/std
         self.mean = torch.tensor(mean, dtype=dtype, device=device)
         self.std = torch.tensor(std, dtype=dtype, device=device)
@@ -142,6 +186,8 @@ class DevicePipeline:
         self.frame_transform = frame_transform
 
     def batch(self, dataset, batch_idx: np.ndarray) -> Dict[str, torch.Tensor]:
+        if self.mesh is not None:
+            return self._mesh_batch(dataset, np.asarray(batch_idx))
         pos = torch.from_numpy(dataset.window_positions(batch_idx)).to(
             self.device
         )
@@ -152,6 +198,32 @@ class DevicePipeline:
             self.frames, pos, feats, self.mean, self.std,
             dataset.horizon, self.image_size, self.dtype, self.frame_transform,
         )
+
+    def _mesh_batch(self, dataset, batch_idx: np.ndarray) -> Dict[str, torch.Tensor]:
+        from multimodal_outage_tpu_torch.core.mesh import DATA_AXIS, TIME_AXIS, local_batch_slice
+        from multimodal_outage_tpu_torch.parallel.collectives import all_reduce
+
+        mesh, h = self.mesh, dataset.horizon
+        tl = h // mesh.shape.time
+        t0 = mesh.coord(TIME_AXIS) * tl
+        rows = local_batch_slice(len(batch_idx), mesh)
+        cols = np.r_[t0:t0 + tl, h + t0:h + t0 + tl]  # this T slice of past, future
+        feats = dataset.window_date_feats(batch_idx[rows])[:, t0:t0 + tl]
+        feats = torch.from_numpy(np.ascontiguousarray(feats)).to(self.device)
+        if not self.shard:
+            pos = dataset.window_positions(batch_idx[rows])[:, cols]
+            return gather_windows(self.frames, torch.from_numpy(pos).to(self.device), feats,
+                                  self.mean, self.std, tl, self.image_size, self.dtype,
+                                  self.frame_transform)
+        pos = torch.from_numpy(dataset.window_positions(batch_idx)[:, cols]).to(self.device)
+        local = pos - self.offset
+        inside = (local >= 0) & (local < self.frames.shape[0])
+        raw = self.frames.index_select(0, local.clamp(0, self.frames.shape[0] - 1).reshape(-1))
+        raw = raw * inside.reshape(-1, 1, 1, 1)
+        raw = all_reduce(raw, mesh.group(DATA_AXIS))
+        raw = raw.reshape(len(batch_idx), 2 * tl, *raw.shape[1:])[rows].reshape(-1, *raw.shape[1:])
+        return layout_windows(raw, rows.stop - rows.start, feats, self.mean, self.std, tl,
+                              self.image_size, self.dtype, self.frame_transform)
 
 
 def preprocess_batch(

@@ -17,6 +17,13 @@ through the same contraction and encoder in eval mode and without
 gradient, after the train pass, so they are normalized with the running
 statistics that pass has just updated, as in the JAX package's one
 apply; the decoder feeds them with the step's probability.
+
+sample_weight [B] (the mesh step's 'w' row) reaches every
+GroupedBatchNorm, masking the running-stat update of pad rows (JAX
+models/fusion.py:91-188); DCRNN has none. Under a mesh (core/mesh.py)
+the U-Net, the bottleneck, Date2Vec and the kernel_size-1 Graph WaveNet
+run on this rank's slice of T; an st-GNN that mixes T gets it gathered
+(_st_gnn).
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import torch
 import torch.nn as nn
 
 from multimodal_outage_tpu_torch.core.config import ModelConfig
+from multimodal_outage_tpu_torch.core.mesh import TIME_AXIS, active_mesh, full_time, time_sharded
 from multimodal_outage_tpu_torch.data.adjacency import model_adjtype, n_static_supports
 from multimodal_outage_tpu_torch.models.date2vec import Date2Vec
 from multimodal_outage_tpu_torch.models.dcrnn import DCRNN
@@ -92,14 +100,10 @@ class ModifiedUNet(nn.Module):
         tf_prob: Optional[float] = None,  # this step's sampling probability
         sampling: Optional[torch.Generator] = None,  # CPU generator of the coins
     ) -> torch.Tensor:
-        if sample_weight is not None:
-            raise NotImplementedError(
-                "sample_weight only exists on the mesh path; it comes with "
-                "the ROADMAP item 'SPMD with sample_weight'"
-            )
         b, n, t = x.shape[:3]
         dt = self.dtype
-        bottleneck, skips = self.contraction(x.to(dt), train)
+        sw = sample_weight
+        bottleneck, skips = self.contraction(x.to(dt), train, sw)
         z = self.encoder(bottleneck, train, generator)
         teacher = {}
         if (targets is not None and train and self.cfg.st_gnn == "dcrnn"
@@ -112,9 +116,35 @@ class ModifiedUNet(nn.Module):
         z = torch.cat([z, te], dim=-1)  # [B, N, T, 320]
         if supports is not None:
             supports = torch.as_tensor(supports, device=x.device)
-        z = self.st_gnn(z, supports, train, generator, **teacher)
+        if self.cfg.st_gnn == "gwnet":
+            teacher["sample_weight"] = sw  # DCRNN has no BatchNorm (JAX dcrnn.py:194-197)
+        z = self._st_gnn(z, supports, train, generator, teacher)
         d = self.decoder(z, train, generator)
-        return self.expansion(d, skips, train).float()
+        return self.expansion(d, skips, train, sw).float()
+
+    def _st_gnn(self, z, supports, train, generator, kw) -> torch.Tensor:
+        """The st-GNN. Under a mesh whose time axis splits T, a module that
+        mixes T (DCRNN, the Graph WaveNet TCN of kernel_size > 1, the
+        reference_view_quirk reinterpret) gets the whole window: T (and
+        the teacher's latent targets) all-gathered over the time group,
+        computed alike on every time rank, this rank's slice kept
+        (parallel/collectives.py gather_time)."""
+        g = self.cfg.gwnet
+        pointwise = (self.cfg.st_gnn == "gwnet" and g.kernel_size == 1
+                     and not g.reference_view_quirk)
+        if pointwise or not time_sharded():
+            return self.st_gnn(z, supports, train, generator, **kw)
+        from multimodal_outage_tpu_torch.parallel.collectives import gather_time
+
+        mesh = active_mesh()
+        group = mesh.group(TIME_AXIS)
+        t_local = z.shape[2]
+        z = gather_time(z, group)
+        if kw.get("targets") is not None:
+            kw = {**kw, "targets": gather_time(kw["targets"], group)}
+        with full_time():
+            out = self.st_gnn(z, supports, train, generator, **kw)
+        return out.narrow(2, mesh.coord(TIME_AXIS) * t_local, t_local)
 
 
 def build_model(cfg: ModelConfig, horizon: int, n_counties: int, image_size: int = 128,

@@ -21,9 +21,10 @@ carries batch_stats into the recomputed function, does.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -34,6 +35,16 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from multimodal_outage_tpu_torch.core.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    TIME_AXIS,
+    active_mesh,
+    full_time,
+    mesh_state,
+    time_sharded,
+    use_mesh,
+)
 from multimodal_outage_tpu_torch.ops.max_pool import (
     MaxPool2x2Reference,
     max_pool_2x2_pallas,
@@ -41,37 +52,77 @@ from multimodal_outage_tpu_torch.ops.max_pool import (
 )
 from multimodal_outage_tpu_torch.weights import conv_transpose_weight
 
-_SAMPLE_WEIGHT = (
-    "sample_weight (pad-masked BatchNorm updates) only exists on the mesh "
-    "path; it comes with the ROADMAP item 'SPMD with sample_weight'"
-)
+# the mesh axes along which each dim of a [B, N, T, C] activation is split
+# (batch over data, T over time; a tensor-parallel hidden C over model)
+ROWS_TIME = (DATA_AXIS, None, TIME_AXIS, None)
+ROWS_TIME_MODEL = (DATA_AXIS, None, TIME_AXIS, MODEL_AXIS)
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            axes: Tuple[Optional[str], ...] = ROWS_TIME) -> torch.Tensor:
     """flax nn.Dropout: keep with probability 1−rate, scale kept values by
     1/(1−rate). The mask comes from `generator` (the global generator when
-    None); it cannot reproduce JAX's random bits."""
+    None); it cannot reproduce JAX's random bits.
+
+    Under a mesh (core/mesh.py use_mesh), x is this rank's block of the
+    global activation, split along the mesh axes `axes` names per dim: the
+    mask is drawn for the global shape and this rank's block is cut from
+    it, so a mesh step draws the one-device step's mask."""
     if not train or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    mesh = active_mesh()
+    if mesh is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    else:
+        shape, index = list(x.shape), []
+        for dim, axis in enumerate(axes):
+            split = axis is not None and (axis != TIME_AXIS or time_sharded())
+            k = mesh.size(axis) if split else 1
+            shape[dim] *= k
+            index.append(slice(mesh.coord(axis) * x.shape[dim],
+                               (mesh.coord(axis) + 1) * x.shape[dim]) if k > 1 else slice(None))
+        keep = (torch.rand(shape, generator=generator, device=x.device) < keep_prob)[tuple(index)]
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dense(nn.Module):
-    """flax nn.Dense: x @ kernel + bias in the compute dtype."""
+    """flax nn.Dense: x @ kernel + bias in the compute dtype.
+
+    tp (set by parallel/sharding.py shard_model) makes it one half of a
+    Megatron pair over the mesh's model group: "column" holds a block of
+    the output columns (and of the bias) and takes its replicated input
+    through f (identity forward, gradient summed over the group); "row"
+    holds a block of the input rows, sums the partial products over the
+    group (g) and adds the full bias once after."""
 
     def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kernel = nn.Parameter(torch.zeros(cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.dtype = dtype
+        self.tp: Optional[str] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+        if self.tp is None:
+            return x.to(self.dtype) @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+        from multimodal_outage_tpu_torch.parallel.collectives import (
+            copy_to_model,
+            reduce_from_model,
+        )
+
+        mesh = active_mesh()
+        if mesh is None:
+            raise RuntimeError("a tensor-parallel Dense runs only under its mesh (use_mesh)")
+        group = mesh.group(MODEL_AXIS)
+        if self.tp == "column":
+            x = copy_to_model(x.to(self.dtype), group)
+            return x @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+        y = reduce_from_model(x.to(self.dtype) @ self.kernel.to(self.dtype), group)
+        return y + self.bias.to(self.dtype)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -139,9 +190,20 @@ class GroupedBatchNorm(nn.Module):
     (:152-167). Eval mode normalizes with the running statistics. The
     output is cast back to the input dtype (:172-174).
 
+    sample_weight [B] (1 valid, 0 pad; the mesh step's 'w' row) masks the
+    running-stat update per group (_update_running), so a padded tail
+    updates the statistics as the ragged batch does (:117-160).
+
+    Under a mesh (core/mesh.py use_mesh): where T is split over the time
+    ranks, a group's moments are summed over the time group before
+    normalising; the running statistics are updated from the global
+    batch's groups (_update_running).
+
     Inside remat(): the forward pass records the running mean its single
     sweep is shifted by, and the backward's recompute reads that record
-    and leaves the running statistics alone."""
+    and leaves the running statistics alone. The recompute runs under the
+    mesh the forward ran under (_RematPass), also on the thread autograd
+    runs a card's backward on, so it sums the same moments."""
 
     def __init__(self, features: int, num_group_axes: int, momentum: float = 0.1,
                  eps: float = 1e-5, serial_ema: bool = True, single_pass: bool = False):
@@ -157,27 +219,58 @@ class GroupedBatchNorm(nn.Module):
         self.single_pass = single_pass
 
     def forward(self, x: torch.Tensor, train: bool, sample_weight=None) -> torch.Tensor:
-        if sample_weight is not None:
-            raise NotImplementedError(_SAMPLE_WEIGHT)
         if not train:
             inv = torch.rsqrt(self.var + self.eps) * self.scale
             return ((x.float() - self.mean) * inv + self.bias).to(x.dtype)
         g = math.prod(x.shape[: self.num_group_axes])
         xg = x.float().reshape(g, -1, x.shape[-1])  # [G, m, C]
-        if self.single_pass:
+        mesh = active_mesh()
+        if mesh is not None and time_sharded():
+            mean, var, m = self._time_sharded_moments(xg, mesh)
+        elif self.single_pass:
             m0 = self._shift()
             xs = xg - m0
             s1 = xs.mean(dim=1, keepdim=True)
             s2 = xs.square().mean(dim=1, keepdim=True)
             mean = s1 + m0
             var = torch.clamp(s2 - s1.square(), min=0.0)
+            m = xg.shape[1]
         else:
             mean = xg.mean(dim=1, keepdim=True)
             var = (xg - mean).square().mean(dim=1, keepdim=True)
+            m = xg.shape[1]
         if not getattr(_REMAT, "replay", False):
-            self._update_running(mean.detach(), var.detach(), xg.shape[1])
+            v = None
+            if sample_weight is not None:
+                # validity per group: the per-sample row broadcast over the
+                # group axes, C order (batch outer), binarised
+                w = (torch.as_tensor(sample_weight, device=x.device) > 0).float()
+                gshape = x.shape[: self.num_group_axes]
+                v = w.reshape(w.shape + (1,) * (len(gshape) - w.dim())).expand(gshape).reshape(g)
+            self._update_running(mean.detach(), var.detach(), m, v)
         inv = torch.rsqrt(var + self.eps) * self.scale
         return ((xg - mean) * inv + self.bias).to(x.dtype).reshape(x.shape)
+
+    def _time_sharded_moments(self, xg: torch.Tensor, mesh):
+        """A group's moments when its reduced axes hold this rank's slice of
+        T: the sums (shifted ones for single_pass; two rounds for the
+        two-pass variance) summed over the time group, then divided by
+        the global count m."""
+        from multimodal_outage_tpu_torch.parallel.collectives import sum_over
+
+        group = mesh.group(TIME_AXIS)
+        m = xg.shape[1] * mesh.shape.time
+        c = xg.shape[-1]
+        if self.single_pass:
+            m0 = self._shift()
+            xs = xg - m0
+            sums = sum_over(torch.cat([xs.sum(1, keepdim=True),
+                                       xs.square().sum(1, keepdim=True)], -1), group)
+            s1, s2 = sums[..., :c] / m, sums[..., c:] / m
+            return s1 + m0, torch.clamp(s2 - s1.square(), min=0.0), m
+        mean = sum_over(xg.sum(1, keepdim=True), group) / m
+        var = sum_over((xg - mean).square().sum(1, keepdim=True), group) / m
+        return mean, var, m
 
     def _shift(self) -> torch.Tensor:
         """The running mean the single sweep is shifted by: as it stands,
@@ -191,21 +284,51 @@ class GroupedBatchNorm(nn.Module):
         return frame[self]
 
     @torch.no_grad()
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor, m: int) -> None:
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor, m: int,
+                        v: Optional[torch.Tensor] = None) -> None:
+        """The running-stat EMA from the G groups' statistics (JAX
+        models/layers.py:114-167). v [G] (0/1) masks groups: the serial
+        closed form skips the invalid ones in order, w_k = v_k·m·(1−m)^
+        (Σ_{j>k} v_j) (the count after k by a reversed cumsum) and decay =
+        (1−m)^Σv; the group-mean path takes the Σv-weighted mean. An
+        all-zero v leaves both unchanged. On a mesh with data > 1 the
+        groups' rows and v are all-gathered over the data group in rank
+        order, so every rank applies the update of the global batch,
+        batch outer, and the statistics stay replicated."""
         g, c = mean.shape[0], mean.shape[-1]
         s_mean = mean.reshape(g, c)
         s_var = (var * (m / max(m - 1, 1))).reshape(g, c)
+        mesh = active_mesh()
+        if mesh is not None and mesh.shape.data > 1:
+            from multimodal_outage_tpu_torch.parallel.collectives import all_gather
+
+            group = mesh.group(DATA_AXIS)
+            s_mean, s_var = all_gather(s_mean, group), all_gather(s_var, group)
+            v = None if v is None else all_gather(v, group)
+            g = s_mean.shape[0]
         mom = self.momentum
         if self.serial_ema:
-            w = mom * (1 - mom) ** torch.arange(
-                g - 1, -1, -1, dtype=torch.float32, device=mean.device
-            )
-            decay = (1 - mom) ** g
+            if v is None:
+                w = mom * (1 - mom) ** torch.arange(
+                    g - 1, -1, -1, dtype=torch.float32, device=mean.device
+                )
+                decay = (1 - mom) ** g
+            else:
+                cnt_after = torch.flip(torch.cumsum(torch.flip(v, (0,)), 0), (0,)) - v
+                w = v * mom * torch.pow(torch.tensor(1 - mom, device=v.device), cnt_after)
+                decay = torch.pow(torch.tensor(1 - mom, device=v.device), v.sum())
             self.mean.copy_(decay * self.mean + w @ s_mean)
             self.var.copy_(decay * self.var + w @ s_var)
-        else:
+        elif v is None:
             self.mean.copy_((1 - mom) * self.mean + mom * s_mean.mean(0))
             self.var.copy_((1 - mom) * self.var + mom * s_var.mean(0))
+        else:
+            n = v.sum()
+            denom = torch.clamp(n, min=1.0)
+            new_mean = (1 - mom) * self.mean + mom * ((v @ s_mean) / denom)
+            new_var = (1 - mom) * self.var + mom * ((v @ s_var) / denom)
+            self.mean.copy_(torch.where(n > 0, new_mean, self.mean))
+            self.var.copy_(torch.where(n > 0, new_var, self.var))
 
 
 # the remat() call running on this thread: .frame, a dict of the shift
@@ -216,26 +339,33 @@ _REMAT = threading.local()
 
 class _RematPass:
     """One pass of a remat() call, the forward (replay False) or the
-    backward's recompute (replay True), around the selective-checkpoint
-    context of the pass when there is one."""
+    backward's recompute (replay True), under the mesh state the forward
+    ran under (core/mesh.py mesh_state: a card's backward runs on
+    autograd's device thread, where the caller's use_mesh is not in
+    force), around the selective-checkpoint context of the pass when
+    there is one."""
 
-    def __init__(self, frame: dict, replay: bool, inner=None):
-        self.frame, self.replay, self.inner = frame, replay, inner
+    def __init__(self, frame: dict, replay: bool, mesh, inner=None):
+        self.frame, self.replay, self.mesh, self.inner = frame, replay, mesh, inner
 
     def __enter__(self) -> "_RematPass":
-        self.prev = (getattr(_REMAT, "frame", None), getattr(_REMAT, "replay", False))
+        self.stack = contextlib.ExitStack()
+        prev = (getattr(_REMAT, "frame", None), getattr(_REMAT, "replay", False))
         _REMAT.frame, _REMAT.replay = self.frame, self.replay
+        self.stack.callback(self._restore, prev)
+        mesh, full_t = self.mesh
+        self.stack.enter_context(use_mesh(mesh))
+        self.stack.enter_context(full_time(full_t))
         if self.inner is not None:
-            self.inner.__enter__()
+            self.stack.enter_context(self.inner)
         return self
 
+    @staticmethod
+    def _restore(prev) -> None:
+        _REMAT.frame, _REMAT.replay = prev
+
     def __exit__(self, *exc) -> bool:
-        try:
-            if self.inner is not None:
-                self.inner.__exit__(*exc)
-        finally:
-            _REMAT.frame, _REMAT.replay = self.prev
-        return False
+        return self.stack.__exit__(*exc)
 
 
 def _save_conv_outputs(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -256,12 +386,13 @@ def remat(block: nn.Module, *args, save_convs: bool = False) -> torch.Tensor:
     kernel called through ctypes inside the block (the max-pool pair)
     runs again in the recompute."""
 
-    def contexts():
+    def contexts():  # called by the forward pass, on the caller's thread
         frame: dict = {}
+        mesh = mesh_state()
         fwd = rec = None
         if save_convs:
             fwd, rec = create_selective_checkpoint_contexts(_save_conv_outputs)
-        return _RematPass(frame, False, fwd), _RematPass(frame, True, rec)
+        return _RematPass(frame, False, mesh, fwd), _RematPass(frame, True, mesh, rec)
 
     return checkpoint(block, *args, use_reentrant=False, context_fn=contexts,
                       preserve_rng_state=False)

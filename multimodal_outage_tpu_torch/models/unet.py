@@ -26,6 +26,7 @@ from multimodal_outage_tpu_torch.models.layers import (
     Dense,
     DoubleConv,
     Down,
+    ROWS_TIME_MODEL,
     OutConv,
     Up,
     dropout,
@@ -96,7 +97,7 @@ class BottleneckEncoder(nn.Module):
     def forward(self, x: torch.Tensor, train: bool,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         flat = x.reshape(*x.shape[:-3], -1)  # [B, N, T, h·w·c]
-        h = dropout(torch.relu(self.fc1(flat)), self.rate, train, generator)
+        h = dropout(torch.relu(self.fc1(flat)), self.rate, train, generator, ROWS_TIME_MODEL)
         return torch.relu(self.fc2(h))
 
 
@@ -115,7 +116,7 @@ class BottleneckDecoder(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = dropout(torch.relu(self.fc1(x)), self.rate, train, generator)
+        h = dropout(torch.relu(self.fc1(x)), self.rate, train, generator, ROWS_TIME_MODEL)
         return torch.relu(self.fc2(h)).reshape(*x.shape[:-1], *self.grid)
 
 

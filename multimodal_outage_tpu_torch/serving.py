@@ -30,11 +30,21 @@ Max-pool, Dense, ConvTranspose, concat and the 1×1 head are the ops the
 JAX engine leaves to XLA; here they stay PyTorch ops. Every batch size
 takes the same path: the JAX engine's B=1-only rule for the DCRNN kernel
 (its serving.py:393-399) is a TPU measurement and is not carried over.
+
+ServingModel(mesh=) (JAX serving.py:104-167, 299-330, 476-490) is the
+SPMD engine of one rank of a mesh (core/mesh.py): the trainable module
+in eval mode, its tensor-parallel Dense layers split over the model
+ranks, each request split B over the data ranks and T over the time
+ranks, the output gathered onto every rank. The kernel paths are
+single-device programs: a mesh engine rejects their flags with the JAX
+engine's ValueError, and a request batch the data axis does not divide
+with its message.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -44,7 +54,11 @@ import torch.nn.functional as F
 
 from multimodal_outage_tpu_torch.core.config import DataConfig, ModelConfig
 from multimodal_outage_tpu_torch.core.device import resolve_device
-from multimodal_outage_tpu_torch.core.metrics import MeanAggregator, regression_metrics
+from multimodal_outage_tpu_torch.core.metrics import (
+    MeanAggregator,
+    regression_metrics,
+    weighted_regression_metrics,
+)
 from multimodal_outage_tpu_torch.core.registry import leave_one_out
 from multimodal_outage_tpu_torch.models import date2vec
 from multimodal_outage_tpu_torch.models.dcrnn import DCRNN
@@ -111,12 +125,25 @@ class ServingModel:
         reference: bool = False,
         gwnet_stack: Optional[bool] = None,
         gwnet_pallas: bool = False,
-        dcrnn_stack: bool = True,
+        dcrnn_stack: Optional[bool] = None,
+        mesh=None,
     ):
         if cfg.st_gnn not in ("gwnet", "dcrnn"):
             raise NotImplementedError(
                 f"ServingModel serves st_gnn in ('gwnet', 'dcrnn') (got {cfg.st_gnn!r})"
             )
+        self.mesh = mesh
+        if mesh is not None:
+            if gwnet_stack or dcrnn_stack or gwnet_pallas:
+                raise ValueError(
+                    "Pallas kernel paths are single-device programs; build "
+                    "the ServingModel without mesh= for the fused B=1 "
+                    "route, or drop the kernel flags for SPMD serving"
+                )
+            self._mesh_engine(cfg, variables, supports, horizon, mesh)
+            return
+        if dcrnn_stack is None:
+            dcrnn_stack = True
         if cfg.st_gnn == "gwnet":
             gwnet_stack = gwnet_path(cfg.gwnet, supports is not None, gwnet_stack, gwnet_pallas)
         if cfg.st_gnn == "dcrnn" and supports is None:
@@ -179,6 +206,41 @@ class ServingModel:
         # the DoubleConv function of each level, contraction then expansion
         self.double_conv_fns = tuple(fn for fn, _ in self._down + [u[2] for u in self._up])
 
+    def _mesh_engine(self, cfg: ModelConfig, variables, supports, horizon: int, mesh) -> None:
+        """The module path on a mesh: ModifiedUNet in eval mode at the
+        variables' sizes, this rank's tensor-parallel shards loaded."""
+        from multimodal_outage_tpu_torch.models.fusion import build_model
+        from multimodal_outage_tpu_torch.parallel.sharding import shard_model, shard_tree
+
+        p = variables["params"]
+        top = cfg.base_channels * 2**cfg.depth
+        grid = int(round(math.sqrt(torch.as_tensor(p["decoder"]["fc2"]["kernel"]).shape[1]
+                                   / top)))
+        n = (torch.as_tensor(supports).shape[-1] if supports is not None
+             else torch.as_tensor(p["st_gnn"]["nodevec1"]).shape[0])
+        self.cfg, self.horizon, self.reference = cfg, horizon, False
+        self.gwnet_stack = False
+        self.device = mesh.device
+        self.dtype = getattr(torch, cfg.compute_dtype)
+        model = build_model(cfg, horizon, n, grid * 2**cfg.depth)
+        shard_model(model, mesh)
+        load_variables(model, {"params": shard_tree(p, mesh),
+                               "batch_stats": variables["batch_stats"]})
+        self._module = model.to(self.device).eval()
+        self._supports = (None if supports is None
+                          else torch.as_tensor(supports).to(self.device, torch.float32))
+        self.double_conv_fns = ()
+
+    def forward_local(self, x: torch.Tensor, date_feats: torch.Tensor) -> torch.Tensor:
+        """A mesh engine's forward of this rank's part of a request (its
+        rows and T slice, as the mesh pipeline gives them) → its part of
+        the output."""
+        from multimodal_outage_tpu_torch.core.mesh import use_mesh
+
+        with torch.inference_mode(), use_mesh(self.mesh):
+            return self._module(x.to(self.device), date_feats.to(self.device), self._supports,
+                                train=False)
+
     def _gwnet_stack(self, st, st_bs, sup) -> Callable[[torch.Tensor], torch.Tensor]:
         """The whole Graph WaveNet stack as one kernel: BN folded, weights
         stacked (in bf16 also packed in fragment order for the kernel's
@@ -228,7 +290,21 @@ class ServingModel:
     @torch.inference_mode()
     def __call__(self, x: torch.Tensor, date_feats: torch.Tensor) -> torch.Tensor:
         """x [B, N, T, H, W, Cin], date_feats [B, T, 6] → [B, N, T, H, W,
-        Cout] float32."""
+        Cout] float32. A mesh engine takes the whole request on every rank
+        and returns the whole output on every rank."""
+        if self.mesh is not None:
+            from multimodal_outage_tpu_torch.parallel.sharding import gather_output, shard_batch
+
+            dp = self.mesh.shape.data
+            if x.shape[0] % dp:
+                raise ValueError(
+                    f"request batch {x.shape[0]} not divisible by the mesh "
+                    f"data axis {dp} — pad the batch "
+                    "(parallel.sharding.pad_batch) or use a mesh-less "
+                    "engine for B=1 latency serving"
+                )
+            part = shard_batch(self.mesh, {"x": x, "date_feats": date_feats})
+            return gather_output(self.forward_local(part["x"], part["date_feats"]), self.mesh)
         cfg, dtype = self.cfg, self.dtype
         b, n, t, hh, ww, c_in = x.shape
         m = b * n * t
@@ -287,7 +363,8 @@ def time_requests(serve: ServingModel, batches: List[Dict[str, torch.Tensor]], r
     `repeats` times. On the card each request is bracketed by CUDA events
     on the current stream (host enqueue included, as a caller sees it);
     on the CPU by the host clock."""
-    serve(batches[0]["x"], batches[0]["date_feats"])
+    call = serve if getattr(serve, "mesh", None) is None else serve.forward_local
+    call(batches[0]["x"], batches[0]["date_feats"])
     out = []
     for batch in batches:
         for _ in range(repeats):
@@ -295,13 +372,13 @@ def time_requests(serve: ServingModel, batches: List[Dict[str, torch.Tensor]], r
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                serve(batch["x"], batch["date_feats"])
+                call(batch["x"], batch["date_feats"])
                 end.record()
                 end.synchronize()
                 out.append(start.elapsed_time(end))
             else:
                 t0 = time.perf_counter()
-                serve(batch["x"], batch["date_feats"])
+                call(batch["x"], batch["date_feats"])
                 out.append(1e3 * (time.perf_counter() - t0))
     return out
 
@@ -330,7 +407,12 @@ def serve_eval(
     a store past data_cfg.device_store_budget_mb streams through the host
     path, and transform / frame_transform reach every batch as in fit
     (JAX train/loop.py:773-860). The batches kept for the latency
-    requests are device tensors from either path."""
+    requests are device tensors from either path.
+
+    A mesh engine sweeps on its mesh: padded batches, each rank its part
+    (train/loop.py _mesh_epoch_iter), the weighted global metrics, the
+    predictions gathered and trimmed to the test windows, and a mesh
+    request (this rank's part) timed for the latency."""
     from contextlib import closing
     from itertools import islice
 
@@ -351,20 +433,34 @@ def serve_eval(
     # serve_eval and the port's fit hold them (float32 on the host path);
     # the engine casts them to its compute dtype
     cfg = Config(data=data_cfg, train=TrainConfig(batch_size=batch_size))
-    pipe = make_pipeline(cfg, store, serve.device, frame_transform)
+    mesh = getattr(serve, "mesh", None)  # an engine without one serves on its device
+    pipe = make_pipeline(cfg, store, serve.device, frame_transform, mesh)
     agg = MeanAggregator()
     timed: List[Dict[str, torch.Tensor]] = []
     forwards = 0
+    full = batch_size // (1 if mesh is None else mesh.shape.data)
+    preds: List[np.ndarray] = []
     with closing(_epoch_iter(test_ds, np.arange(len(test_ds)), cfg, False, 0, pipe,
-                             serve.device, transform, frame_transform)) as batches:
+                             serve.device, transform, frame_transform, mesh)) as batches:
         for batch in islice(batches, max_batches):
-            yhat = serve(batch["x"], batch["date_feats"])
+            if mesh is None:
+                yhat = serve(batch["x"], batch["date_feats"])
+                agg.update(regression_metrics(yhat, batch["y"]))
+            else:
+                from multimodal_outage_tpu_torch.parallel.sharding import gather_output
+
+                yhat = serve.forward_local(batch["x"], batch["date_feats"])
+                agg.update(weighted_regression_metrics(yhat, batch["y"], batch["w"], mesh))
+                if collect_preds is not None:
+                    yhat = gather_output(yhat, mesh)
             forwards += 1
-            agg.update(regression_metrics(yhat, batch["y"]))
             if collect_preds is not None:
-                collect_preds.append(yhat.cpu().numpy())
-            if len(timed) < 6 and batch["x"].shape[0] == batch_size:
+                preds.append(yhat.cpu().numpy())
+            if len(timed) < 6 and batch["x"].shape[0] == full:
                 timed.append(batch)
+    if collect_preds is not None and preds:
+        # a mesh pads the tail batch: trim the pad rows off
+        collect_preds.extend(preds if mesh is None else [np.concatenate(preds)[:len(test_ds)]])
     latency: Dict[str, float] = {}
     if latency_stats and timed:
         times = time_requests(serve, timed)

@@ -35,7 +35,18 @@ hooks of the reference dataset's transform slot (utils.py:14,35-38):
 `transform` (dict→dict on the device batch, after the built-ins) and
 `frame_transform` (in place of the built-in Resize + Normalize).
 
-Not here yet (check_supported raises): mesh/SPMD with sample_weight.
+SPMD (JAX train/loop.py:254-325, 450-512, 804-1041): when cfg.mesh
+resolves to more than one device (core/mesh.py mesh_from_config) fit,
+predict and serve_eval (serving.py) run on a (data, model, time) mesh of
+ranks started by parallel/launch.py, and return rank 0's result. Every
+batch is padded to the batch size with a 'w' row masking the pad rows
+(_mesh_epoch_iter, parallel/sharding.py pad_batch), each rank holding
+its rows and T slice; the steps are parallel/sharding.py's; metrics are
+the weighted global ones; a checkpoint holds the gathered full tree,
+written by rank 0, and reads back on any mesh or none; predict trims the
+padded tail off its arrays. _validate_mesh_cfg raises JAX's three
+errors. The hooks reach the mesh batches too (they must keep 'w', and
+pickle: the ranks are spawned processes).
 """
 
 from __future__ import annotations
@@ -57,7 +68,18 @@ from multimodal_outage_tpu_torch.core.checkpoint import (
 )
 from multimodal_outage_tpu_torch.core.config import Config, asdict
 from multimodal_outage_tpu_torch.core.device import resolve_device
-from multimodal_outage_tpu_torch.core.metrics import MeanAggregator, regression_metrics
+from multimodal_outage_tpu_torch.core.mesh import (
+    Mesh,
+    MeshShape,
+    local_batch_slice,
+    mesh_from_config,
+    torchrun_env,
+)
+from multimodal_outage_tpu_torch.core.metrics import (
+    MeanAggregator,
+    regression_metrics,
+    weighted_regression_metrics,
+)
 from multimodal_outage_tpu_torch.core.oom import is_oom_error
 from multimodal_outage_tpu_torch.core.registry import leave_one_out
 from multimodal_outage_tpu_torch.core.run_logging import RunLogger, device_memory_stats
@@ -85,23 +107,61 @@ from multimodal_outage_tpu_torch.train.steps import (
 )
 from multimodal_outage_tpu_torch.weights import init_variables, load_variables, module_variables
 
+_GRAD_ACCUM_ON_MESH = (
+    "grad_accum (including auto) is a single-device-path "
+    "feature; with a mesh, scale batch over the data axis "
+    "instead"
+)
+
 
 def check_supported(cfg: Config) -> None:
-    """Raise on the settings this slice of the port does not run: a device
-    mesh, and with it first grad_accum != 1, which JAX refuses on a mesh
-    (train/loop.py:457-462)."""
+    """Raise JAX's refusal of grad_accum != 1 with a mesh of more than one
+    device (train/loop.py:457-462)."""
     mesh = cfg.mesh
     if mesh.model != 1 or mesh.time != 1 or mesh.data not in (-1, 1):
         if cfg.train.grad_accum != 1:
-            raise ValueError(
-                "grad_accum (including auto) is a single-device-path "
-                "feature; with a mesh, scale batch over the data axis "
-                "instead"
-            )
-        raise NotImplementedError(
-            "a device mesh: not in the port yet; it comes with the ROADMAP item "
-            "'SPMD with sample_weight'"
+            raise ValueError(_GRAD_ACCUM_ON_MESH)
+
+
+def _validate_mesh_cfg(cfg: Config, shape: MeshShape) -> None:
+    """JAX's fit/predict/serve_eval mesh-vs-config checks (train/loop.py:
+    1011-1032), word for word. The max-pool kernel is refused on a mesh
+    of more than one device as the JAX package refuses its Pallas
+    kernel there (a quirk the port keeps)."""
+    if cfg.train.batch_size % shape.data != 0:
+        raise ValueError(
+            f"batch_size {cfg.train.batch_size} not divisible by mesh "
+            f"data axis {shape.data}"
         )
+    if cfg.data.horizon % shape.time != 0:
+        raise ValueError(
+            f"horizon {cfg.data.horizon} not divisible by mesh time axis {shape.time}"
+        )
+    if cfg.model.pool == "pallas" and shape.size > 1:
+        raise ValueError(
+            "pool='pallas' cannot run under a multi-device mesh (no GSPMD "
+            "partitioning rule for pallas_call); use pool='reduce_window'"
+        )
+
+
+def resolve_mesh(cfg: Config, device_type: str) -> Optional[MeshShape]:
+    """cfg.mesh resolved (None: one device) and validated, for fit,
+    predict and serve (JAX mesh_from_config and _validate_mesh_cfg, as
+    its _inference_mesh)."""
+    shape = mesh_from_config(cfg.mesh, device_type)
+    if shape is not None:
+        _validate_mesh_cfg(cfg, shape)
+    return shape
+
+
+class _NullLogger:
+    """The run log of a rank other than 0: rank 0 writes the run's."""
+
+    def log(self, row) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def _accum_split_count(b: int, mb_size: int) -> int:
@@ -242,28 +302,36 @@ def pipeline_choice(cfg: Config, store) -> str:
     return "host"
 
 
-def make_pipeline(cfg: Config, store, device, frame_transform=None) -> Optional[DevicePipeline]:
+def make_pipeline(cfg: Config, store, device, frame_transform=None,
+                  mesh: Optional[Mesh] = None) -> Optional[DevicePipeline]:
     """The DevicePipeline of the store on `device` when pipeline_choice
     says "device", else None: _epoch_iter then streams batches through
     the host path. frame_transform ([B,N,T,H,W] float32 → [B,N,T,s,s,C])
-    replaces the built-in Resize + Normalize on either path."""
+    replaces the built-in Resize + Normalize on either path. With a mesh
+    the pipeline gives each rank its part of a batch, and
+    cfg.data.shard_store splits the store's dates over the data ranks."""
     if pipeline_choice(cfg, store) == "host":
         return None
     return DevicePipeline(store, cfg.data.mean, cfg.data.std, cfg.data.image_size,
                           getattr(torch, cfg.data.device_dtype), device,
-                          frame_transform=frame_transform)
+                          frame_transform=frame_transform, mesh=mesh,
+                          shard_store=cfg.data.shard_store)
 
 
 def _epoch_iter(ds, idx, cfg: Config, shuffle: bool, seed: int, device_pipe, device,
-                transform=None, frame_transform=None):
+                transform=None, frame_transform=None, mesh: Optional[Mesh] = None):
     """Every batch stream of fit, evaluate, predict and serve_eval (JAX
     train/loop.py:193-251, its single-device branches): the windows
     idx[b] for each index batch of batch_indices, from the device
     pipeline, or from a PrefetchIterator (depth cfg.data.prefetch) when
     device_pipe is None, with frame_transform in place of the built-in
     Resize + Normalize. transform, when given, maps each device batch
-    dict→dict after the built-ins. Closing the generator stops the
-    prefetch thread."""
+    dict→dict after the built-ins. With a mesh, _mesh_epoch_iter's
+    batches. Closing the generator stops the prefetch thread."""
+    if mesh is not None:
+        yield from _mesh_epoch_iter(ds, idx, cfg, shuffle, seed, device_pipe, device, mesh,
+                                    transform, frame_transform)
+        return
     batches = (idx[b] for b in batch_indices(len(idx), cfg.train.batch_size, shuffle, seed))
     if device_pipe is not None:
         source = (device_pipe.batch(ds, b) for b in batches)
@@ -279,37 +347,128 @@ def _epoch_iter(ds, idx, cfg: Config, shuffle: bool, seed: int, device_pipe, dev
         source.close()
 
 
+def _mesh_epoch_iter(ds, idx, cfg: Config, shuffle: bool, seed: int, device_pipe, device,
+                     mesh: Mesh, transform=None, frame_transform=None):
+    """The SPMD batch stream (JAX train/loop.py:254-325): every batch
+    padded to the batch size by cycling its valid windows (np.resize), a
+    'w' row of 1 for valid and 0 for pad rows; this rank gets its rows
+    and its T slice, with its rows of 'w'. The device pipeline gathers
+    only those; the host path gathers this rank's rows (all of T) and
+    slices T on the device."""
+    from multimodal_outage_tpu_torch.parallel.sharding import shard_local_batch
+
+    bs = cfg.train.batch_size
+    rows = local_batch_slice(bs, mesh)
+    plan = []
+    for b in batch_indices(len(idx), bs, shuffle, seed):
+        sel = idx[b]
+        w = np.ones((bs,), np.float32)
+        if len(sel) < bs:
+            w[len(sel):] = 0.0
+            sel = np.resize(sel, bs)
+        plan.append((sel, w))
+    if device_pipe is not None:
+        source = (device_pipe.batch(ds, sel) for sel, _ in plan)
+    else:
+        source = iter(PrefetchIterator(
+            ds, (sel[rows] for sel, _ in plan), cfg.data.mean, cfg.data.std,
+            cfg.data.image_size, device, depth=cfg.data.prefetch,
+            frame_transform=frame_transform,
+        ))
+    try:
+        for (_, w), batch in zip(plan, source):
+            if device_pipe is None:  # this rank's rows, all of T: its T slice
+                batch = shard_local_batch(mesh, batch)
+            batch["w"] = torch.from_numpy(w[rows].copy()).to(device)
+            yield batch if transform is None else transform(batch)
+    finally:
+        source.close()
+
+
 def evaluate(
     predict_step, ds, idx, cfg: Config, supports, device_pipe,
     collect: Optional[Tuple[List[np.ndarray], List[np.ndarray]]] = None,
-    transform=None, frame_transform=None,
+    transform=None, frame_transform=None, mesh: Optional[Mesh] = None,
 ) -> Dict[str, float]:
     """Mean of per-batch metrics (reference lit.py:100-106), each from the
     batch's one eval forward. With collect=(preds, targets), each batch's
     prediction and target are also appended there as host arrays. Batches
-    come from _epoch_iter on the supports' device."""
+    come from _epoch_iter on the supports' device. With a mesh the
+    metrics are the global batch's weighted ones and the collected arrays
+    the global (padded) batches, on every rank."""
+    from multimodal_outage_tpu_torch.parallel.sharding import gather_output
+
     agg = MeanAggregator()
     with closing(_epoch_iter(ds, idx, cfg, False, 0, device_pipe, supports.device,
-                             transform, frame_transform)) as batches:
+                             transform, frame_transform, mesh)) as batches:
         for batch in batches:
             yhat = predict_step(batch, supports)
-            agg.update(regression_metrics(yhat, batch["y"]))
+            if mesh is None:
+                agg.update(regression_metrics(yhat, batch["y"]))
+            else:
+                agg.update(weighted_regression_metrics(yhat, batch["y"], batch["w"], mesh))
             if collect is not None:
+                y = batch["y"]
+                if mesh is not None:
+                    yhat, y = gather_output(yhat, mesh), gather_output(y, mesh)
                 collect[0].append(yhat.cpu().numpy())
-                collect[1].append(batch["y"].cpu().numpy())
+                collect[1].append(y.cpu().numpy())
     return agg.compute()
 
 
-def _ckpt_tree(state: TrainState, epoch: int, best_val: float, best_epoch: int, bad: int):
+def _ckpt_tree(state: TrainState, epoch: int, best_val: float, best_epoch: int, bad: int,
+               mesh: Optional[Mesh] = None):
+    """The checkpoint tree. On a mesh, the full tree gathered from the
+    ranks' tensor-parallel shards (every rank takes part; rank 0 writes
+    it), so any mesh, or none, reads it back."""
     v = module_variables(state.model)
+    opt = state.opt.state_tree()
+    if mesh is not None:
+        from multimodal_outage_tpu_torch.parallel.sharding import gather_tree
+
+        v = {"params": gather_tree(v["params"], mesh), "batch_stats": v["batch_stats"]}
+        opt = {"mu": gather_tree(opt["mu"], mesh), "nu": gather_tree(opt["nu"], mesh),
+               "count": opt["count"]}
     return {
         "params": v["params"],
         "batch_stats": v["batch_stats"],
-        "opt_state": state.opt.state_tree(),
+        "opt_state": opt,
         "step": state.step,
         "meta": {"epoch": epoch, "best_val": best_val, "best_epoch": best_epoch,
                  "bad_epochs": bad},
     }
+
+
+def _load_tree(model: torch.nn.Module, tree, mesh: Optional[Mesh] = None) -> None:
+    """A full {"params", "batch_stats"} tree into the model, this rank's
+    shards of it on a mesh."""
+    params = tree["params"]
+    if mesh is not None:
+        from multimodal_outage_tpu_torch.parallel.sharding import shard_tree
+
+        params = shard_tree(params, mesh)
+    load_variables(model, {"params": params, "batch_stats": tree["batch_stats"]})
+
+
+def _load_opt(state: TrainState, opt, mesh: Optional[Mesh] = None) -> None:
+    if mesh is not None:
+        from multimodal_outage_tpu_torch.parallel.sharding import shard_tree
+
+        opt = {"mu": shard_tree(opt["mu"], mesh), "nu": shard_tree(opt["nu"], mesh),
+               "count": opt["count"]}
+    state.opt.load_state_tree(opt)
+
+
+def _rank_stats(mesh: Mesh, values: List[float]) -> List[List[float]]:
+    """Each rank's `values`, in rank order, on every rank (one all_reduce
+    of a [world, k] table where each rank fills its row)."""
+    import torch.distributed as dist
+
+    table = torch.zeros(mesh.shape.size, len(values), dtype=torch.float64)
+    table[mesh.rank] = torch.tensor(values, dtype=torch.float64)
+    buf = table.to(mesh.device)
+    dist.all_reduce(buf)
+    return buf.cpu().tolist()
 
 
 def _initial_variables(cfg: Config, n_counties: int, supports: np.ndarray):
@@ -327,6 +486,19 @@ def _initial_variables(cfg: Config, n_counties: int, supports: np.ndarray):
         variables["params"] = install_bundle(variables["params"],
                                              load_bundle(cfg.model.d2v_bundle))
     return variables
+
+
+def _agree(metrics: Dict[str, float], mesh: Optional[Mesh]) -> Dict[str, float]:
+    """Rank 0's metrics on every rank, so that every rank takes the same
+    early-stopping and checkpoint decisions."""
+    if mesh is None or not metrics:
+        return metrics
+    from multimodal_outage_tpu_torch.parallel.collectives import broadcast
+
+    keys = sorted(metrics)
+    vals = broadcast(torch.tensor([metrics[k] for k in keys], dtype=torch.float64,
+                                  device=mesh.device))
+    return dict(zip(keys, vals.cpu().tolist()))
 
 
 class _StepTrace:
@@ -399,12 +571,41 @@ def fit(
     frame_transform ([B,N,T,H,W] float32 → [B,N,T,s,s,C], in place of
     the built-in Resize + Normalize) reach every batch of the train
     loop, the val sweeps and the final val and test sweeps (JAX
-    train/loop.py:407-424)."""
+    train/loop.py:407-424).
+
+    When cfg.mesh resolves to more than one device, the run is SPMD over
+    a mesh of ranks (module docstring; JAX train/loop.py:450-512), and
+    the result is rank 0's, with "mesh" (its shape) and "ranks": per
+    rank, its peak device memory (MiB, 0 on the CPU) and the host seconds
+    inside collectives."""
     leave_one_out(test_case)  # fail fast on bad flags before any work
     check_supported(cfg)
     dev = resolve_device(device)
+    shape = resolve_mesh(cfg, dev.type)
+    if shape is not None:
+        if cfg.train.grad_accum != 1:
+            raise ValueError(_GRAD_ACCUM_ON_MESH)
+        from multimodal_outage_tpu_torch.parallel import launch
+
+        return launch.run(_fit_rank, shape, dev.type,
+                          (cfg, test_case, run_dir, progress, transform, frame_transform),
+                          progress=progress)
+    return _fit(cfg, test_case, run_dir, progress, dev, transform, frame_transform)
+
+
+def _fit_rank(mesh: Mesh, cfg: Config, test_case: str, run_dir, progress: bool, transform,
+              frame_transform) -> Dict[str, float]:
+    return _fit(cfg, test_case, run_dir, progress, mesh.device, transform, frame_transform, mesh)
+
+
+def _fit(cfg: Config, test_case: str, run_dir, progress: bool, dev: torch.device, transform,
+         frame_transform, mesh: Optional[Mesh] = None) -> Dict[str, float]:
+    """fit's body, on one device (mesh None) or as one rank of a mesh."""
+    main = mesh is None or mesh.is_main
+    progress = progress and main
     run_dir = run_dir or os.path.join(cfg.train.checkpoint_dir, cfg.train.job_id)
-    logger = RunLogger(run_dir, config=asdict(cfg), tensorboard=cfg.train.tensorboard)
+    logger = (RunLogger(run_dir, config=asdict(cfg), tensorboard=cfg.train.tensorboard)
+              if main else _NullLogger())
     ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"), cfg.train.keep_top_k)
 
     ds, train_idx, val_idx, test_ds = prepare_datasets(cfg, test_case)
@@ -417,22 +618,31 @@ def fit(
     horizon, size = cfg.data.horizon, cfg.data.image_size
     model = build_model(cfg.model, horizon, store.n_counties, size)
     load_variables(model, _initial_variables(cfg, store.n_counties, static))
-    model.to(dev)
-    state = create_train_state(model)
     if progress:
         print(f"Model parameters: {param_count(model):,}")
-    train_step = make_train_step(model, debug_nans=cfg.train.debug_nans)
-    if cfg.train.grad_accum != 1:
-        train_step = _grad_accum_step(cfg, model, train_step)
-    predict_step = make_predict_step(model)
-    pipe = make_pipeline(cfg, store, dev, frame_transform)
-    hooks = (transform, frame_transform)
+    if mesh is not None:
+        from multimodal_outage_tpu_torch.parallel import sharding
+
+        sharding.shard_model(model, mesh)
+    model.to(dev)
+    state = create_train_state(model)
+    if mesh is None:
+        train_step = make_train_step(model, debug_nans=cfg.train.debug_nans)
+        if cfg.train.grad_accum != 1:
+            train_step = _grad_accum_step(cfg, model, train_step)
+        predict_step = make_predict_step(model)
+    else:
+        train_step = sharding.make_sharded_train_step(model, mesh, weighted=True,
+                                                      debug_nans=cfg.train.debug_nans)
+        predict_step = sharding.make_sharded_predict_step(model, mesh)
+    pipe = make_pipeline(cfg, store, dev, frame_transform, mesh)
+    hooks = (transform, frame_transform, mesh)
 
     best_val, best_epoch, bad_epochs, start_epoch = float("inf"), -1, 0, 0
     if cfg.train.resume and ckpt.latest_step() is not None:
         tree = ckpt.restore_latest()
-        load_variables(model, tree)
-        state.opt.load_state_tree(tree["opt_state"])
+        _load_tree(model, tree, mesh)
+        _load_opt(state, tree["opt_state"], mesh)
         state.step = int(tree["step"])
         meta = tree["meta"]
         start_epoch = int(meta["epoch"]) + 1
@@ -476,7 +686,8 @@ def fit(
                     metric_count += 1
             train_metrics = {k: float(v) / metric_count for k, v in metric_sum.items()}
 
-            val_metrics = evaluate(predict_step, ds, val_idx, cfg, supports, pipe, None, *hooks)
+            val_metrics = _agree(
+                evaluate(predict_step, ds, val_idx, cfg, supports, pipe, None, *hooks), mesh)
             eval_forwards += n_eval(len(val_idx))
             dt = time.time() - t0
             tiles = len(train_idx) * store.n_counties * horizon
@@ -492,8 +703,11 @@ def fit(
                 best_val, best_epoch, bad_epochs = val_metrics["loss"], epoch, 0
             else:
                 bad_epochs += 1
-            ckpt.save(epoch, _ckpt_tree(state, epoch, best_val, best_epoch, bad_epochs),
-                      metrics={"val_loss": val_metrics["loss"]})
+            tree = _ckpt_tree(state, epoch, best_val, best_epoch, bad_epochs, mesh)
+            if main:
+                ckpt.save(epoch, tree, metrics={"val_loss": val_metrics["loss"]})
+            if mesh is not None:
+                mesh.barrier()  # the files are in place before any rank reads them
             if bad_epochs >= cfg.train.early_stop_patience:
                 if progress:
                     print(f"Early stopping at epoch {epoch}")
@@ -501,7 +715,7 @@ def fit(
 
     # the best checkpoint, swept over val and the held-out hurricane
     # (reference PrintMetricsCallback / TestBestModelCallback, lit.py:74-140)
-    load_variables(model, ckpt.restore())
+    _load_tree(model, ckpt.restore(), mesh)
     final_val = evaluate(predict_step, ds, val_idx, cfg, supports, pipe, None, *hooks)
     final_test = evaluate(predict_step, test_ds, np.arange(len(test_ds)), cfg, supports, pipe,
                           None, *hooks)
@@ -516,6 +730,13 @@ def fit(
     if len(step_events) > 1:
         times = sorted(a.elapsed_time(b) for a, b in step_events[1:])
         results["train_step_ms_p50"] = times[len(times) // 2]
+    if mesh is not None:
+        from multimodal_outage_tpu_torch.parallel.collectives import COLLECTIVE_SECONDS
+
+        peak = (torch.cuda.max_memory_allocated(dev) / 2**20 if dev.type == "cuda" else 0.0)
+        rows = _rank_stats(mesh, [peak, COLLECTIVE_SECONDS[0]])
+        results["mesh"] = str(mesh.shape)
+        results["ranks"] = [{"peak_mem_mb": r[0], "collective_s": r[1]} for r in rows]
     logger.log({"phase": "final", **results})
     if progress:
         print(
@@ -539,15 +760,36 @@ def predict(
     frame_transform=None,
 ) -> Tuple[np.ndarray, np.ndarray, Dict[str, float]]:
     """Sweep the held-out hurricane with a checkpoint (JAX train/loop.py:
-    901-1010, its single-device branch; reference tlit.py:46-94): the best
-    step's (or `step`'s) params and batch_stats, the test windows in
-    order at cfg.train.batch_size, through the sweep fit's final test
-    sweep runs. Returns (preds, targets, metrics): float32 [S, N, T, H, W,
-    1] arrays and the mean of per-batch metrics. transform and
-    frame_transform reach every batch, as in fit."""
+    901-1010; reference tlit.py:46-94): the best step's (or `step`'s)
+    params and batch_stats, the test windows in order at
+    cfg.train.batch_size, through the sweep fit's final test sweep runs.
+    Returns (preds, targets, metrics): float32 [S, N, T, H, W, 1] arrays
+    and the mean of per-batch metrics. transform and frame_transform
+    reach every batch, as in fit. On a mesh of more than one device the
+    sweep is SPMD (batches padded, the weighted metrics equal to the
+    ragged batch's), and the arrays are trimmed to the S windows."""
     require_checkpoints(checkpoint_dir)  # before any other work
     check_supported(cfg)
     dev = resolve_device(device)
+    shape = resolve_mesh(cfg, dev.type)
+    if shape is not None:
+        from multimodal_outage_tpu_torch.parallel import launch
+
+        return launch.run(_predict_rank, shape, dev.type,
+                          (cfg, checkpoint_dir, test_case, step, transform, frame_transform))
+    return _predict(cfg, checkpoint_dir, test_case, step, dev, transform, frame_transform)
+
+
+def _predict_rank(mesh: Mesh, cfg, checkpoint_dir, test_case, step, transform,
+                  frame_transform):
+    out = _predict(cfg, checkpoint_dir, test_case, step, mesh.device, transform,
+                   frame_transform, mesh)
+    # a spawned rank's arrays would cross a pipe only to be dropped
+    return out if mesh.is_main or torchrun_env() else None
+
+
+def _predict(cfg: Config, checkpoint_dir: str, test_case: str, step: Optional[int],
+             dev: torch.device, transform, frame_transform, mesh: Optional[Mesh] = None):
     store = load_store(cfg.data.data_dir)
     _, test_cases = leave_one_out(test_case)
     test_ds = WindowDataset.from_case_study(
@@ -559,11 +801,22 @@ def predict(
     supports = torch.from_numpy(config_supports(cfg, store)).to(dev)
     horizon, size = cfg.data.horizon, cfg.data.image_size
     model = build_model(cfg.model, horizon, store.n_counties, size)
-    load_variables(model, restore_variables(checkpoint_dir, step))
+    variables = restore_variables(checkpoint_dir, step)
+    if mesh is None:
+        load_variables(model, variables)
+        step_fn = make_predict_step(model)
+    else:
+        from multimodal_outage_tpu_torch.parallel import sharding
+
+        sharding.shard_model(model, mesh)
+        _load_tree(model, variables, mesh)
+        step_fn = sharding.make_sharded_predict_step(model, mesh)
     model.to(dev)
-    pipe = make_pipeline(cfg, store, dev, frame_transform)
+    pipe = make_pipeline(cfg, store, dev, frame_transform, mesh)
     preds: List[np.ndarray] = []
     targets: List[np.ndarray] = []
-    metrics = evaluate(make_predict_step(model), test_ds, np.arange(len(test_ds)), cfg,
-                       supports, pipe, (preds, targets), transform, frame_transform)
-    return np.concatenate(preds), np.concatenate(targets), metrics
+    metrics = evaluate(step_fn, test_ds, np.arange(len(test_ds)), cfg, supports, pipe,
+                       (preds, targets), transform, frame_transform, mesh)
+    # a mesh pads the tail batch: trim the pad rows off (JAX :1002-1008)
+    n = len(test_ds)
+    return np.concatenate(preds)[:n], np.concatenate(targets)[:n], metrics

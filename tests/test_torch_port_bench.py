@@ -113,8 +113,12 @@ CONFIGS = {
     "grad_accum_sync": (dict(s=16, b=4), {"pipelined_tiles_per_sec", "synced_tiles_per_sec",
                                      "pipelined_step_ms", "synced_step_ms"}),  # :1472-1477
 }
+CONFIGS.update({  # the mesh configs: a group of one gloo rank on the CPU
+    "sharded_pipeline": (dict(n=4, s=16), {"devices", "batch"}),  # :1410-1413
+    "serving_sharded": (dict(n=4, s=16), {"devices", "batch"}),  # :1526-1529
+})
 UNPORTED = {"xla_flag_sweep": "XLA", "layout_matrix": "XLA", "conv_layout": "XLA",
-            "auto_layout": "XLA", "sharded_pipeline": "§A.10", "serving_sharded": "§A.10"}
+            "auto_layout": "XLA"}
 
 
 def test_config_table_is_jaxs():
@@ -143,6 +147,10 @@ def test_config_line_matches_jax(name, tiny_e2e):
     out = B.run_benchmark(name, steps=1, device="cpu", **sizes)
     assert list(out) == ["metric", "value", "unit", "vs_baseline", "detail"]
     metric, unit = JAX_LINES[JB._BENCHMARKS[name].__name__]
+    if isinstance(unit, ast.JoinedStr):  # JAX's f-string, at the port's values
+        names = {"n_dev": out["detail"]["devices"], "b": out["detail"]["batch"]}
+        unit = "".join(str(v.value) if isinstance(v, ast.Constant) else str(names[v.value.id])
+                       for v in unit.values)
     assert (out["metric"], out["unit"]) == (metric, unit)
     assert set(out["detail"]) == {_rename(k) for k in jax_detail}
     assert out["value"] is not None

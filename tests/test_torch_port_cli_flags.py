@@ -2,20 +2,23 @@
 every option that the JAX parser takes for a command that both packages
 have (train, evaluate, serve, import-torch, bench) parses in the port with the
 JAX default, and the flags map onto the same Config fields as JAX
-_build_config maps them. What the port cannot run raises
-NotImplementedError, before any work: a mesh of more than one device and
-multi-process training.
+_build_config maps them. The mesh flags resolve and validate as JAX's
+do, before any work: a mesh the devices cannot hold raises JAX's
+mesh_from_config errors, and one the config cannot split raises JAX's
+_validate_mesh_cfg errors (a mesh that runs: tests/test_torch_port_spmd_fit.py).
 """
 
 import argparse
 import dataclasses
 import json
+import re
 
 import pytest
 import torch
 
 from multimodal_outage_tpu import cli as jax_cli
 from multimodal_outage_tpu_torch import cli
+from multimodal_outage_tpu_torch.core import mesh as mesh_mod
 from multimodal_outage_tpu_torch.core.config import asdict
 
 COMMANDS = ("train", "evaluate", "serve", "import-torch", "bench")
@@ -126,27 +129,38 @@ def test_new_flags_map_onto_the_config_as_jax_build_config(argv):
 SINGLE = ["--data_dir", "/nonexistent", "--device", "cpu"]
 
 
-@pytest.mark.parametrize("argv", [
-    ["train", "--mesh_data", "4"],
-    ["train", "--mesh_model", "2"],
-    ["evaluate", "--mesh_time", "2"],
-    ["serve", "--mesh_data", "2"],
-    ["serve", "--mesh_model", "2", "--seed", "0"],
-    ["train", "--coordinator_address", "localhost:1234"],
-    ["train", "--num_processes", "2"],
-    ["train", "--process_id", "1"],
-], ids=lambda a: "_".join(a[:2]))
-def test_what_the_port_cannot_run_raises(argv, tmp_path, monkeypatch):
-    """A mesh of more than one device and multi-process training raise
-    NotImplementedError naming the ROADMAP item, before touching the
-    store or writing a run directory."""
+@pytest.mark.parametrize("argv,devices,error", [
+    (["train", "--mesh_data", "4"], None, "mesh 4x1x1 needs 4 devices, have 1"),
+    (["train", "--mesh_model", "2"], None, "1 devices not divisible by model*time=2"),
+    (["evaluate", "--mesh_time", "2"], "2", "horizon 7 not divisible by mesh time axis 2"),
+    (["serve", "--mesh_data", "2", "--batch_size", "3"], "2",
+     "batch_size 3 not divisible by mesh data axis 2"),
+    (["serve", "--mesh_model", "2", "--seed", "0", "--pool", "pallas"], "2",
+     "pool='pallas' cannot run under a multi-device mesh"),
+    (["train", "--mesh_data", "2", "--grad_accum", "2"], "2", "single-device-path feature"),
+    (["train", "--coordinator_address", "localhost:1234", "--num_processes", "2",
+      "--mesh_data", "4"], "1", "mesh 4x1x1 needs 4 devices, have 2"),
+    (["train", "--mesh_time", "3"], "3", "horizon 7 not divisible by mesh time axis 3"),
+], ids=lambda a: "_".join(a[:2]) if isinstance(a, list) else str(a))
+def test_what_the_port_cannot_run_raises(argv, devices, error, tmp_path, monkeypatch):
+    """What the mesh flags cannot run raises JAX's ValueError before
+    touching the store or writing a run directory: the mesh needs more
+    devices than there are (the virtual-device variable, or the hosts of
+    --coordinator_address times each one's), or the batch, the horizon,
+    the pool or grad_accum do not fit it (JAX's _validate_mesh_cfg and
+    its grad_accum refusal)."""
     monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(mesh_mod, "_MULTIHOST", None)
+    if devices is None:
+        monkeypatch.delenv(mesh_mod.VIRTUAL_DEVICES_ENV, raising=False)
+    else:
+        monkeypatch.setenv(mesh_mod.VIRTUAL_DEVICES_ENV, devices)
     if argv[0] in ("evaluate", "serve") and "--seed" not in argv:
         ckpt = tmp_path / "ckpt"
         ckpt.mkdir()
         (ckpt / "x").write_text("")
         argv = argv + ["--checkpoint_path", str(ckpt)]
-    with pytest.raises(NotImplementedError, match="SPMD with sample_weight"):
+    with pytest.raises(ValueError, match=re.escape(error)):
         cli.run(argv + SINGLE)
     assert not (tmp_path / "logs").exists()
 

@@ -796,3 +796,79 @@ def test_bench_dcrnn_stack_on_the_card(cuda):
     _assert_kernel_matches(fns["stack"](), want, want)
     chained = bm._chained(cores["stack"], x, c_in, cuda)()
     _assert_kernel_matches(chained[..., :want.shape[-1]], want, want)
+
+
+_GLOO_CASES = (("2x1x1", (2, 1, 1)), ("1x2x1", (1, 2, 1)), ("1x1x2", (1, 1, 2)))
+
+
+def _gloo_ranks_on_card():
+    """One world of two ranks sharing cuda:0 runs a float32 DCRNN step on
+    each mesh of _GLOO_CASES, and on 1x1x2 with remat_scope all; with the
+    one-rank step on the card (deterministic cuDNN, no TF32)."""
+    import spmd_rank_steps as R
+
+    torch.backends.cudnn.allow_tf32 = False  # a module fixture runs before `cuda`
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    from multimodal_outage_tpu_torch.core.mesh import MeshShape
+    from multimodal_outage_tpu_torch.parallel import launch
+
+    t, n, h = 2, 4, 32
+    rng = np.random.default_rng(0)
+    batch = {"x": rng.standard_normal((4, n, t, h, h, 1)).astype(np.float32),
+             "y": rng.standard_normal((4, n, t, h, h, 1)).astype(np.float32),
+             "date_feats": np.tile(np.array([0, 0, 0, 2022, 9, 26], np.float32), (4, t, 1))}
+    cfg = R.model_config("dcrnn", True)
+    variables = weights.init_variables(cfg, t, n, 3, h)
+    cases = [(name, "dcrnn", shape, True, "b4", 4) for name, shape in _GLOO_CASES]
+    cases.append(("1x1x2_remat", "dcrnn", (1, 1, 2), True, "b4", 4, {"remat_scope": "all"}))
+    got = launch.run(R.mesh_steps, MeshShape(2, 1, 1), "cuda",
+                     (cases, {"dcrnn": variables}, {"b4": batch}, (t, n, h)), progress=False)
+    torch.backends.cudnn.deterministic = True
+    try:
+        ref = R.one_device_step(cfg, variables, batch, t, n, h, device="cuda")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return got, ref
+
+
+@pytest.fixture(scope="module")
+def gloo_ranks_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (README: the port's tests on the H100)")
+    return _gloo_ranks_on_card()
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_equal_one_rank(cuda, gloo_ranks_on_card):
+    """Two ranks sharing cuda:0 over gloo (parallel/launch.py picks gloo
+    when a host's ranks outnumber its cards): a float32 DCRNN step on each
+    of 2x1x1, 1x2x1 and 1x1x2 equals the one-rank step on the card
+    (deterministic cuDNN, no TF32) at the CPU tests' bars
+    (tests/test_torch_port_spmd.py)."""
+    got, ref = gloo_ranks_on_card
+    g_all = max(float(np.abs(v).max()) for v in ref["grads"].values())
+    for name, _ in _GLOO_CASES:
+        r = got[name]
+        for k in ("loss", "mae", "mape", "rmse"):
+            np.testing.assert_allclose(r["metrics"][k], ref["metrics"][k], rtol=1e-5)
+        for k, v in ref["stats"].items():
+            np.testing.assert_allclose(r["stats"][k], v, rtol=1e-4, atol=1e-5, err_msg=k)
+        for k, v in ref["grads"].items():
+            bar = 1e-4 * max(float(np.abs(v).max()), 1e-3 * g_all)
+            assert float(np.abs(r["grads"][k] - v).max()) <= bar, (name, k)
+
+
+@pytest.mark.cuda
+def test_remat_on_a_time_split_mesh_on_the_card(cuda, gloo_ranks_on_card):
+    """remat_scope all on 1x1x2 on the card, where autograd runs the
+    backward, and with it the blocks' recompute, on its device thread:
+    the recompute normalises with the time-summed moments the forward
+    used, so the step equals the same mesh's step without remat bitwise
+    (deterministic cuDNN, the same shapes)."""
+    got, _ = gloo_ranks_on_card
+    r, want = got["1x1x2_remat"], got["1x1x2"]
+    assert r["metrics"] == want["metrics"]
+    for part in ("stats", "grads", "params"):
+        for k, v in want[part].items():
+            assert np.array_equal(r[part][k], v), (part, k)

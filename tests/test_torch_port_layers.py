@@ -172,9 +172,22 @@ def test_graph_wavenet_matches_flax():
 
 
 def test_sample_weight_raises():
-    bn = tl.GroupedBatchNorm(4, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bn(torch.zeros(2, 2, 3, 4), True, sample_weight=torch.ones(2))
+    """sample_weight, refused before the mesh was ported, now masks the
+    running-stat update: an all-ones row is the unmasked update, and a
+    zero row leaves a group out (the full comparison with JAX's module is
+    tests/test_torch_port_spmd.py)."""
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 2, 3, 4))
+                         .astype(np.float32))
+    plain, ones, half = (tl.GroupedBatchNorm(4, 2) for _ in range(3))
+    y = plain(x, True)
+    torch.testing.assert_close(ones(x, True, sample_weight=torch.ones(2)), y)
+    torch.testing.assert_close(ones.mean, plain.mean)
+    torch.testing.assert_close(ones.var, plain.var)
+    half(x, True, sample_weight=torch.tensor([1.0, 0.0]))
+    first = tl.GroupedBatchNorm(4, 2)
+    first(x[:1], True)
+    torch.testing.assert_close(half.mean, first.mean)
+    torch.testing.assert_close(half.var, first.var)
 
 
 def test_dropout_keep_rate_scale_and_seed():

@@ -423,8 +423,10 @@ def test_unported_model_configs_raise(cfg, match):
      Config(model=ModelConfig(gwnet=GWNetConfig(randomadj=False)))],
 )
 def test_unported_train_knobs_raise(train):
-    """The knob fit does not run yet (a mesh) raises; grad_accum (N and
-    auto) and remat, which raised before their ROADMAP item was ported
+    """Every knob runs now: a mesh, which raised before the SPMD slice
+    (tests/test_torch_port_spmd*.py; with grad_accum it raises JAX's
+    ValueError), grad_accum (N and auto) and remat, which raised before
+    their ROADMAP item was ported
     (tests/test_torch_port_accum_remat.py), and svd_aptinit
     (randomadj=False), which raised before the non-fused Graph WaveNet
     branches were ported, are accepted (its nodevecs:
@@ -432,11 +434,10 @@ def test_unported_train_knobs_raise(train):
     profile_dir, debug_nans and d2v_bundle run
     (tests/test_torch_port_resume.py, tests/test_torch_port_run_options.py)."""
     cfg = train if isinstance(train, Config) else Config(train=train)
-    if cfg.mesh == MeshConfig():
-        loop.check_supported(cfg)
-    else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            loop.check_supported(cfg)
+    loop.check_supported(cfg)
+    if cfg.mesh != MeshConfig():
+        with pytest.raises(ValueError, match="single-device-path feature"):
+            loop.check_supported(cfg.replace(train=TrainConfig(grad_accum=2)))
     loop.check_supported(Config(train=TrainConfig(resume=True, tensorboard=True,
                                                   profile_dir="p", debug_nans=True)))
 

@@ -167,7 +167,7 @@ BENCH_STEPS = {
     "dcrnn": 3, "unet_train": 3, "serving": 6, "fusion_inference": 6, "unet_cpu_b4": 3,
     "gwnet_forecast": 6, "gwnet_stack": 10, "dcrnn_stack": 10, "pool_pallas": 2,
     "remat_conv": 2, "roofline": 3, "serving_roofline": 5, "fused_stack": 3,
-    "multimodal_fusion": 3, "grad_accum_sync": 2,
+    "multimodal_fusion": 3, "grad_accum_sync": 2, "layout_matrix": 3, "conv_layout": 3,
 }
 # phase 15 (the mesh on one card): ranks share cuda:0 over gloo
 # (MULTIMODAL_OUTAGE_TORCH_VIRTUAL_DEVICES). A float32 B=8 step on each
@@ -228,6 +228,8 @@ BENCH_DETAIL = {
     "multimodal_fusion": _THROUGHPUT,
     "grad_accum_sync": {"pipelined_tiles_per_sec", "synced_tiles_per_sec",
                         "pipelined_step_ms", "synced_step_ms"},
+    "layout_matrix": {"base", "pool", "stem", "pool_stem", "base2", "stem8"},
+    "conv_layout": {"nhwc", "nchw", "nchw_xpose"},
 }
 
 
@@ -2412,6 +2414,35 @@ def _bench_line_faults(out, detail_keys):
     return "; ".join(faults)
 
 
+def conv_layout_held(torch, bm, failures):
+    """Phase 14e: conv_layout's three layouts (benchmarks.conv_layout_fns)
+    at its shapes and seeded bf16 inputs; for every ordered pair, each
+    one's w1 and w2 gradients held to the other's against the float32
+    nhwc gradients (compare's bf16 bar; TF32 is off here). Returns
+    {"<a>_vs_<b>": {"w1": max |Δ|, "w2": ...}, "f32_max": {...},
+    "<a>_vs_f32": {...}}."""
+    x, w1, w2 = bm.conv_layout_inputs()
+    grads = {k: fn() for k, fn in bm.conv_layout_fns(x, w1, w2).items()}
+    truth = bm.conv_layout_fns(x.float(), w1.float(), w2.float())["nhwc"]()
+    torch.cuda.synchronize()
+    held = {"f32_max": {w: float(t.abs().max()) for w, t in zip(("w1", "w2"), truth)}}
+    for a, g in grads.items():
+        held[f"{a}_vs_f32"] = {w: float((g[i].float() - truth[i]).abs().max())
+                               for i, w in enumerate(("w1", "w2"))}
+    for a in grads:
+        for b in grads:
+            if a == b:
+                continue
+            row = {}
+            for i, w in enumerate(("w1", "w2")):
+                err, ok, note = compare(grads[a][i], grads[b][i], truth[i])
+                row[w] = err
+                if not ok:
+                    failures.append(f"14e conv_layout {a} vs {b} d{w}: {err} ({note})")
+            held[f"{a}_vs_{b}"] = row
+    return held
+
+
 def bench_end_to_end(torch, F, dcm, gsm, glm, dsm, mp, train_store, trained):
     """Phase 14: the `bench` configs (benchmarks.py) on the card at full
     width. (a) `bench --config e2e_train --steps 3` through the CLI in a
@@ -2431,7 +2462,11 @@ def bench_end_to_end(torch, F, dcm, gsm, glm, dsm, mp, train_store, trained):
     against the module (float32), and the isolated pool at the B=8 stem
     shape (forward equal to F.max_pool2d, backward equal to the plain
     version of the kernel's tie rule; the positions where F.max_pool2d's
-    backward routes a tie elsewhere are counted). Fails on a disagreement
+    backward routes a tie elsewhere are counted), and conv_layout's three
+    layouts at its shapes in bf16, each one's w1 and w2 gradients held to
+    each other's against a float32 run of nhwc (compare's bf16 bar). The
+    launches of each config are logged too (layout_matrix and
+    conv_layout launch no kernel of the port). Fails on a disagreement
     or a missing field, not on a time."""
     import gc
     import subprocess
@@ -2505,14 +2540,16 @@ def bench_end_to_end(torch, F, dcm, gsm, glm, dsm, mp, train_store, trained):
                 "gwnet_layer": glm.gwnet_layer_forward, "dcrnn_stack": dsm.dcrnn_stack_forward}
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
-    results, walls = {}, {}
+    results, walls, per_config = {}, {}, {}
     try:
         for c in counters.values():
             c.launches = 0
         for name, steps in BENCH_STEPS.items():
             t0 = time.perf_counter()
+            before = sum(c.launches for c in counters.values())
             out = bm.run_benchmark(name, steps=steps)
             walls[name] = time.perf_counter() - t0
+            per_config[name] = sum(c.launches for c in counters.values()) - before
             log(f"phase 14d: bench --config {name} --steps {steps} {json.dumps(out)}; "
                 f"{walls[name]:.1f} s")
             results[name] = out
@@ -2526,6 +2563,7 @@ def bench_end_to_end(torch, F, dcm, gsm, glm, dsm, mp, train_store, trained):
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
     log(f"phase 14d: kernel launches of the configs {json.dumps(launches)}")
+    log(f"phase 14d: kernel launches per config {json.dumps(per_config)}")
     if not all(launches.values()):
         failures.append(f"14d: a kernel was not launched: {launches}")
 
@@ -2558,6 +2596,7 @@ def bench_end_to_end(torch, F, dcm, gsm, glm, dsm, mp, train_store, trained):
     if fwd_err or bwd_err:
         failures.append(f"14e iso pool: forward {fwd_err}, backward {bwd_err}")
     del fns, x, g, xd, dx
+    holds["conv_layout"] = conv_layout_held(torch, bm, failures)
     log(f"phase 14e: A/B pairs held {json.dumps(holds)}")
     if failures:
         raise RuntimeError("phase 14: " + "\n".join(failures))

@@ -23,12 +23,18 @@
              a store (data/acquisition.py)
   ingest-monthly — attach a {county}/monthly_{Y}_{M}.npy tree to a store
              as its risk-map baseline sidecar
+  download-missing — fetch the days each {county} directory under
+             --out_dir lacks in the hurricanes' ±--margin_days windows
+             from NASA's Black Marble servers (needs the network,
+             NASA_BEARER_TOKEN, blackmarblepy, geopandas and pandas) and
+             print {"counties", "dates_fetched", "per_county"}
   bench    — run one benchmark config (benchmarks.py) and print its
              {"metric", "value", "unit", "vs_baseline", "detail"} line
 
 serve, train, evaluate, import-torch, pretrain-d2v, ingest,
 ingest-monthly and bench run on the card unless --device cpu is given;
-without a card they raise rather than falling back. Every command prints one JSON
+without a card they raise rather than falling back. download-missing is
+host code and takes no --device. Every command prints one JSON
 object as its last line; train --num_runs N > 1 prints {"runs": [<run 0's
 results>, ...]}; import-torch, ingest and ingest-monthly print the JAX
 CLI's line before it.
@@ -175,6 +181,13 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default=None, choices=("cuda", "cpu"),
                    help="where the rasters are resized; default: cuda (raises if there "
                    "is no card)")
+
+    p = sub.add_parser("download-missing", help="Re-fetch only the dates each county "
+                       "directory is missing (reference eda/util.py:216-234): recovery after "
+                       "a partial download. Needs NASA_BEARER_TOKEN, blackmarblepy, geopandas "
+                       "and pandas, and the network")
+    p.add_argument("--out_dir", type=str, required=True)
+    p.add_argument("--margin_days", type=int, default=90)
 
     p = sub.add_parser("bench", help="Run one benchmark config")
     p.add_argument("--config", type=str, default="unet_train")
@@ -552,6 +565,17 @@ def ingest_monthly_command(args: argparse.Namespace) -> Dict[str, Any]:
             "months": months.tolist()}
 
 
+def download_missing_command(args: argparse.Namespace) -> Dict[str, Any]:
+    """Run `download-missing` (JAX cli.py:574-590): returns JAX's line,
+    {"counties", "dates_fetched", "per_county"} (dates fetched and saved
+    per county)."""
+    from multimodal_outage_tpu_torch.data.acquisition import download_missing_dates
+
+    fetched = download_missing_dates(args.out_dir, margin_days=args.margin_days)
+    return {"counties": len(fetched), "dates_fetched": sum(len(v) for v in fetched.values()),
+            "per_county": {k: len(v) for k, v in fetched.items()}}
+
+
 def bench_command(args: argparse.Namespace) -> Dict[str, Any]:
     """Run `bench` (JAX cli.py:594-598): one config of benchmarks.py."""
     from multimodal_outage_tpu_torch.benchmarks import run_benchmark
@@ -585,6 +609,7 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     return {"serve": serve_command, "train": train_command, "evaluate": evaluate_command,
             "import-torch": import_torch_command, "pretrain-d2v": pretrain_d2v_command,
             "ingest": ingest_command, "ingest-monthly": ingest_monthly_command,
+            "download-missing": download_missing_command,
             "bench": bench_command}[args.command](args)
 
 

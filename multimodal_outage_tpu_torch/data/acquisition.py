@@ -1,6 +1,5 @@
-"""Ingest of local NASA Black Marble rasters into the packed store: the
-port's copy of the offline half of the JAX package's
-data/acquisition.py (itself the reference's eda/util.py).
+"""NASA Black Marble acquisition and ingest: the port's copy of the JAX
+package's data/acquisition.py (itself the reference's eda/util.py).
 
 ingest_directory packs a {county}/{Y_m_d}.{npy|pickle|pkl} tree of daily
 VNP46A2 `Gap_Filled_DNB_BRDF-Corrected_NTL` rasters into the
@@ -13,8 +12,17 @@ antialiased bilinear resize (pipeline.py resize_bilinear), then pulled
 back. The NASA fill sentinel is zeroed at native resolution, before the
 resize, as the reference zeroes it at load (utils.py:60, 272).
 
-Not here: the download functions and the county geometries, which need
-the network.
+The downloads fetch what ingest reads, through blackmarblepy's
+bm_raster over each Florida county's bounding box (GADM 4.1):
+download_county_rasters the daily rasters ±margin_days around each
+hurricane as {county}/{Y}_{M}_{D}.npy, download_missing_dates only the
+days a county directory lacks (the recovery after a partial download),
+download_monthly_composites the risk-map baseline months as
+{county}/monthly_{Y}_{M}.npy and download_annual_composites
+{county}/annual_{Y}.npy. They are host code and need the network, a
+NASA Earthdata token in NASA_BEARER_TOKEN, and blackmarblepy, geopandas
+and pandas, which are imported when a download is called, never when
+this module is.
 """
 
 from __future__ import annotations
@@ -30,13 +38,28 @@ import torch
 
 from multimodal_outage_tpu_torch.core.config import NTL_FILL_SENTINEL
 from multimodal_outage_tpu_torch.core.device import resolve_device
-from multimodal_outage_tpu_torch.core.registry import HURRICANES
+from multimodal_outage_tpu_torch.core.registry import HURRICANES, RISK_MONTHS
 from multimodal_outage_tpu_torch.data.pipeline import resize_bilinear
 from multimodal_outage_tpu_torch.data.store import load_store, save_store
 
 _DATE_FILE_RE = re.compile(r"^(\d{4})_(\d{1,2})_(\d{1,2})\.(npy|pickle|pkl)$")
 _MONTH_FILE_RE = re.compile(r"^monthly_(\d{4})_(\d{1,2})\.npy$")
 NTL_VARIABLE = "Gap_Filled_DNB_BRDF-Corrected_NTL"
+_NEEDS_EXTRAS = ("blackmarblepy/geopandas are required for downloads; run this "
+                 "module on a host with the acquisition extras installed")
+GADM_USA_COUNTIES_URL = "https://geodata.ucdavis.edu/gadm/gadm4.1/json/gadm41_USA_2.json.zip"
+
+
+def get_bearer_token() -> str:
+    """The NASA Earthdata bearer token from NASA_BEARER_TOKEN; never
+    hardcoded (the reference committed one, eda/util.py:20)."""
+    token = os.environ.get("NASA_BEARER_TOKEN", "")
+    if not token:
+        raise RuntimeError(
+            "Set NASA_BEARER_TOKEN (NASA Earthdata bearer token) to download "
+            "Black Marble data. Tokens are never hardcoded in this repo."
+        )
+    return token
 
 
 def hurricane_date_ranges(
@@ -192,3 +215,189 @@ def ingest_monthly_directory(
     np.save(os.path.join(store_dir, "monthly.npy"), monthly)
     np.save(os.path.join(store_dir, "monthly_months.npy"), months)
     return monthly, months
+
+
+def _bm_raster(with_geopandas: bool = True, message: str = _NEEDS_EXTRAS):
+    """blackmarble.raster.bm_raster, imported now (with geopandas, which
+    the county geometries need): RuntimeError(message) where either is
+    missing."""
+    try:
+        from blackmarble.raster import bm_raster  # type: ignore
+        if with_geopandas:
+            import geopandas  # type: ignore  # noqa: F401
+    except ImportError as e:
+        raise RuntimeError(message) from e
+    return bm_raster
+
+
+def download_county_rasters(
+    out_dir: str,
+    hurricanes: Dict[str, datetime.date] | None = None,
+    margin_days: int = 90,
+    product_id: str = "VNP46A2",
+    variable: str = NTL_VARIABLE,
+) -> None:
+    """Download each county's daily rasters over every hurricane's
+    ±margin_days window, one request per (county, hurricane), into
+    {out_dir}/{county}/{Y}_{M}_{D}.npy (reference eda/util.py:237-280;
+    JAX acquisition.py:186-224). Needs NASA_BEARER_TOKEN, blackmarblepy,
+    geopandas and pandas, and raises RuntimeError without the first
+    three."""
+    token = get_bearer_token()
+    bm_raster = _bm_raster()
+    import pandas as pd  # type: ignore
+
+    ranges = hurricane_date_ranges(hurricanes, margin_days)
+    for county, gdf in load_florida_county_geometries().items():
+        county_dir = os.path.join(out_dir, county)
+        os.makedirs(county_dir, exist_ok=True)
+        for start, end in ranges.values():
+            dates = pd.date_range(start, end, freq="D")
+            raster = bm_raster(gdf, product_id=product_id, date_range=dates, bearer=token,
+                               variable=variable)
+            _save_available_days(raster, dates, variable, county_dir)
+
+
+def _save_available_days(raster, dates, variable: str, county_dir: str) -> List[datetime.date]:
+    """Save each requested day that the returned raster holds as
+    {county_dir}/{Y}_{M}_{D}.npy (float32). A day with no upstream
+    granule, the usual cause of a partial download, is skipped, not a
+    KeyError. Returns the dates saved."""
+    available = {str(t)[:10] for t in np.asarray(raster["time"].values)}
+    saved = []
+    for ts in dates:
+        key = ts.strftime("%Y-%m-%d")
+        if key not in available:
+            continue
+        day = raster.sel(time=key)[variable]
+        np.save(os.path.join(county_dir, f"{ts.year}_{ts.month}_{ts.day}.npy"),
+                np.asarray(day.values, dtype=np.float32))
+        saved.append(ts.date() if hasattr(ts, "date") else ts)
+    return saved
+
+
+def _contiguous_runs(
+    dates: Sequence[datetime.date],
+) -> List[Tuple[datetime.date, datetime.date]]:
+    """Sorted dates as inclusive contiguous (start, end) runs, so that a
+    gap re-fetch makes one bm_raster request per run, not per day."""
+    runs: List[Tuple[datetime.date, datetime.date]] = []
+    for d in sorted(dates):
+        if runs and (d - runs[-1][1]).days == 1:
+            runs[-1] = (runs[-1][0], d)
+        else:
+            runs.append((d, d))
+    return runs
+
+
+def download_missing_dates(
+    out_dir: str,
+    hurricanes: Dict[str, datetime.date] | None = None,
+    margin_days: int = 90,
+    product_id: str = "VNP46A2",
+    variable: str = NTL_VARIABLE,
+) -> Dict[str, List[datetime.date]]:
+    """Fetch only the days each county directory lacks in the hurricanes'
+    windows (reference eda/util.py:216-234; JAX acquisition.py:261-318):
+    the recovery after a partial download_county_rasters, one request per
+    contiguous run of gaps. Overlapping windows give a day once. Returns,
+    per county, the dates fetched and saved; a gap with no upstream
+    granule is skipped and not counted, and stays a gap, so a later run
+    asks for it again."""
+    token = get_bearer_token()
+    bm_raster = _bm_raster()
+    import pandas as pd  # type: ignore
+
+    ranges = hurricane_date_ranges(hurricanes, margin_days)
+    fetched: Dict[str, List[datetime.date]] = {}
+    for county, gdf in load_florida_county_geometries().items():
+        county_dir = os.path.join(out_dir, county)
+        os.makedirs(county_dir, exist_ok=True)
+        have = find_available_dates(county_dir)
+        gaps = sorted({d for start, end in ranges.values()
+                       for d in find_missing_dates(have, start, end)})
+        saved: List[datetime.date] = []
+        for start, end in _contiguous_runs(gaps):
+            dates = pd.date_range(start, end, freq="D")
+            raster = bm_raster(gdf, product_id=product_id, date_range=dates, bearer=token,
+                               variable=variable)
+            saved.extend(_save_available_days(raster, dates, variable, county_dir))
+        fetched[county] = saved
+    return fetched
+
+
+def _save_composite(bm_raster, gdf, first, freq: str, product_id: str, variable: str,
+                    token: str, path: str) -> None:
+    """One composite (the period that starts at the pd.Timestamp `first`)
+    saved as float32 at path."""
+    import pandas as pd  # type: ignore
+
+    raster = bm_raster(gdf, product_id=product_id,
+                       date_range=pd.date_range(first, first, freq=freq), bearer=token,
+                       variable=variable)
+    comp = raster.sel(time=first.strftime("%Y-%m-%d"))[variable]
+    np.save(path, np.asarray(comp.values, dtype=np.float32))
+
+
+def download_monthly_composites(
+    out_dir: str,
+    hurricanes: Dict[str, datetime.date] | None = None,
+    product_id: str = "VNP46A3",
+    variable: str = "NearNadir_Composite_Snow_Free",
+) -> None:
+    """Each county's monthly VNP46A3 composites for the risk-map baseline
+    months of the hurricanes' years (RISK_MONTHS, reference
+    utils.py:262-269; eda/util.py:135-165; JAX acquisition.py:321-364),
+    as {county}/monthly_{Y}_{M}.npy for ingest_monthly_directory."""
+    token = get_bearer_token()
+    bm_raster = _bm_raster()
+    import pandas as pd  # type: ignore
+
+    years = sorted({d.year for d in (hurricanes or HURRICANES).values()})
+    for county, gdf in load_florida_county_geometries().items():
+        county_dir = os.path.join(out_dir, county)
+        os.makedirs(county_dir, exist_ok=True)
+        for year in years:
+            for month in RISK_MONTHS.get(year, ()):
+                _save_composite(bm_raster, gdf, pd.Timestamp(year=year, month=month, day=1),
+                                "MS", product_id, variable, token,
+                                os.path.join(county_dir, f"monthly_{year}_{month}.npy"))
+
+
+def download_annual_composites(
+    out_dir: str,
+    years: Sequence[int],
+    product_id: str = "VNP46A4",
+    variable: str = "NearNadir_Composite_Snow_Free",
+) -> None:
+    """Each county's annual VNP46A4 composite for `years`, as
+    {county}/annual_{Y}.npy (reference eda/util.py:283-286; JAX
+    acquisition.py:367-402)."""
+    token = get_bearer_token()
+    bm_raster = _bm_raster(with_geopandas=False,
+                           message="blackmarblepy/geopandas are required for downloads")
+    import pandas as pd  # type: ignore
+
+    for county, gdf in load_florida_county_geometries().items():
+        county_dir = os.path.join(out_dir, county)
+        os.makedirs(county_dir, exist_ok=True)
+        for year in years:
+            _save_composite(bm_raster, gdf, pd.Timestamp(year=year, month=1, day=1), "YS",
+                            product_id, variable, token,
+                            os.path.join(county_dir, f"annual_{year}.npy"))
+
+
+def load_florida_county_geometries():
+    """{county: a GeoDataFrame of its bounding box}, the Florida rows of
+    GADM 4.1's level-2 USA counties read from GADM_USA_COUNTIES_URL,
+    keyed NAME_2.lower() with spaces as underscores (reference
+    eda/util.py:168-174, 289-307). Reads the network when called."""
+    try:
+        import geopandas as gpd  # type: ignore
+    except ImportError as e:
+        raise RuntimeError("geopandas required for county geometries") from e
+    gdf = gpd.read_file(GADM_USA_COUNTIES_URL)
+    fl = gdf[gdf["NAME_1"] == "Florida"]
+    return {row["NAME_2"].lower().replace(" ", "_"):
+            gpd.GeoDataFrame(geometry=[row.geometry.envelope], crs=fl.crs)
+            for _, row in fl.iterrows()}

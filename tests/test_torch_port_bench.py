@@ -112,13 +112,15 @@ CONFIGS = {
     "multimodal_fusion": (dict(n=4, s=16), THROUGHPUT),  # :1375
     "grad_accum_sync": (dict(s=16, b=4), {"pipelined_tiles_per_sec", "synced_tiles_per_sec",
                                      "pipelined_step_ms", "synced_step_ms"}),  # :1472-1477
+    "layout_matrix": (dict(s=16, b=2), {"base", "pool", "stem", "pool_stem", "base2",
+                                        "stem8"}),  # :573-587
+    "conv_layout": (dict(m=4, s=16), {"nhwc", "nchw", "nchw_xpose"}),  # :1177-1183
 }
 CONFIGS.update({  # the mesh configs: a group of one gloo rank on the CPU
     "sharded_pipeline": (dict(n=4, s=16), {"devices", "batch"}),  # :1410-1413
     "serving_sharded": (dict(n=4, s=16), {"devices", "batch"}),  # :1526-1529
 })
-UNPORTED = {"xla_flag_sweep": "XLA", "layout_matrix": "XLA", "conv_layout": "XLA",
-            "auto_layout": "XLA"}
+UNPORTED = {"xla_flag_sweep": "XLA", "auto_layout": "XLA"}
 
 
 def test_config_table_is_jaxs():
@@ -148,7 +150,11 @@ def test_config_line_matches_jax(name, tiny_e2e):
     assert list(out) == ["metric", "value", "unit", "vs_baseline", "detail"]
     metric, unit = JAX_LINES[JB._BENCHMARKS[name].__name__]
     if isinstance(unit, ast.JoinedStr):  # JAX's f-string, at the port's values
-        names = {"n_dev": out["detail"]["devices"], "b": out["detail"]["batch"]}
+        detail = out["detail"]
+        numeric = {k: v for k, v in detail.items() if isinstance(v, float)}
+        # JAX's best: the fastest variant (least ms for conv_layout)
+        best = (min if name == "conv_layout" else max)(numeric, key=numeric.get, default=None)
+        names = {"n_dev": detail.get("devices"), "b": detail.get("batch"), "best": best}
         unit = "".join(str(v.value) if isinstance(v, ast.Constant) else str(names[v.value.id])
                        for v in unit.values)
     assert (out["metric"], out["unit"]) == (metric, unit)
@@ -323,6 +329,87 @@ def test_stack_pairs_compute_the_same_forecast(which):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     chain = B._chained(cores["stack"], x, c_in, torch.device("cpu"), reps=2)()
     assert chain.shape == x.shape
+
+
+class _Captured(Exception):
+    pass
+
+
+def test_conv_layout_variants_give_jaxs_stem_gradient(monkeypatch):
+    """Each layout of conv_layout_fns gives the w1 and w2 gradients that
+    JAX bench_conv_layout's jitted variants give, on the same float32
+    inputs: JAX's random draws are replaced by seeded numpy arrays at
+    [3, 16, 16, 1] and its timing loop by a stop that hands over its
+    three variants. Tolerance 1e-4 of each gradient's largest entry: both
+    sides sum the same float32 products (3·16² positions a tap) in
+    another order, oneDNN's against XLA's convolutions (3e-7 of the
+    largest entry measured on the CPU); TF32 is off (it does not act on the CPU, and on the
+    card it would round the float32 inputs)."""
+    import jax
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(0)
+    draws = {(3752, 128, 128, 1): rng.normal(size=(3, 16, 16, 1)),
+             (3, 3, 1, 4): rng.normal(size=(3, 3, 1, 4)),
+             (3, 3, 4, 4): rng.normal(size=(3, 3, 4, 4))}
+    monkeypatch.setattr(jax.random, "normal", lambda key, shape, dtype=None:
+                        jnp.asarray(draws[tuple(shape)], jnp.float32))
+
+    def stop(fns, steps):
+        raise _Captured(fns)
+
+    monkeypatch.setattr(JB, "_interleaved_ab", stop)
+    with pytest.raises(_Captured) as e:
+        JB.bench_conv_layout(steps=1)
+    cells = {}
+    for fn in e.value.args[0].values():  # the variants' closures: jitted grads, inputs
+        cells.update(zip(fn.__code__.co_freevars, (c.cell_contents for c in fn.__closure__)))
+    x, k1, k2 = cells["x_nhwc"], cells["k1"], cells["k2"]
+    want = {"nhwc": cells["g_nhwc"](x, k1, k2), "nchw": cells["g_nchw"](cells["x_nchw"], k1, k2),
+            "nchw_xpose": cells["g_xpose"](x, k1, k2)}
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    fns = B.conv_layout_fns(*(torch.from_numpy(np.array(a)) for a in (x, k1, k2)))
+    assert list(fns) == list(want)
+    for name, fn in fns.items():
+        got = fn()
+        assert len(got) == 2
+        for g, w in zip(got, want[name]):
+            w = torch.from_numpy(np.array(w))
+            assert g.shape == w.shape and g.dtype == torch.float32
+            bar = 1e-4 * float(w.abs().max())
+            torch.testing.assert_close(g, w, rtol=0, atol=bar)
+
+
+@pytest.mark.parametrize("error", ["oom", "other"])
+def test_layout_matrix_stem8_failure(tiny_e2e, monkeypatch, error):
+    """An out-of-memory error inside stem8's pair is reported as JAX
+    reports it, "failed: <ExceptionName>", beside the four variants; any
+    other error is a fault of the port and raises."""
+    exc = (torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate 1.00 GiB")
+           if error == "oom" else ValueError("a fault in the stem8 step"))
+    real = B._e2e_run
+
+    def run(su, b, pad_c=0):
+        if not pad_c:
+            return real(su, b, pad_c)
+
+        def fail():
+            raise exc
+        return fail
+
+    monkeypatch.setattr(B, "_e2e_run", run)
+    if error == "other":
+        with pytest.raises(ValueError, match="stem8"):
+            B.run_benchmark("layout_matrix", steps=1, device="cpu", s=16, b=2)
+        return
+    out = B.run_benchmark("layout_matrix", steps=1, device="cpu", s=16, b=2)
+    d = out["detail"]
+    assert d["stem8"] == "failed: OutOfMemoryError" and "base2" not in d
+    assert set(d) == {"base", "pool", "stem", "pool_stem", "stem8"}
+    best = max((k for k in d if k != "stem8"), key=d.get)
+    assert out["value"] == d[best] and out["unit"] == (
+        f"tiles/sec/chip (best {best}, interleaved, donate=False)")
+    assert out["vs_baseline"] == round(d[best] / d["base"], 3)
 
 
 def test_bench_cli_parses_jax_defaults_and_prints_the_line(monkeypatch, capsys):

@@ -1,7 +1,7 @@
 """The port's parsers against the JAX CLI's (fault C.7 of the ROADMAP):
 every option that the JAX parser takes for a command that both packages
-have (train, evaluate, serve, import-torch, bench) parses in the port with the
-JAX default, and the flags map onto the same Config fields as JAX
+have (train, evaluate, serve, import-torch, bench, download-missing) parses
+in the port with the JAX default, and the flags map onto the same Config fields as JAX
 _build_config maps them. The mesh flags resolve and validate as JAX's
 do, before any work: a mesh the devices cannot hold raises JAX's
 mesh_from_config errors, and one the config cannot split raises JAX's
@@ -21,11 +21,12 @@ from multimodal_outage_tpu_torch import cli
 from multimodal_outage_tpu_torch.core import mesh as mesh_mod
 from multimodal_outage_tpu_torch.core.config import asdict
 
-COMMANDS = ("train", "evaluate", "serve", "import-torch", "bench")
+COMMANDS = ("train", "evaluate", "serve", "import-torch", "bench", "download-missing")
 # the options a command needs to parse at all
 REQUIRED = {"train": [], "evaluate": ["--checkpoint_path", "c"],
             "serve": ["--checkpoint_path", "c"],
-            "import-torch": ["--checkpoint", "r.ckpt", "--out", "o"], "bench": []}
+            "import-torch": ["--checkpoint", "r.ckpt", "--out", "o"], "bench": [],
+            "download-missing": ["--out_dir", "o"]}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -178,3 +179,35 @@ def test_one_device_mesh_flags_run(tiny_store_dir, tmp_path, monkeypatch):
                      "--mesh_time", "1", "--shard_store", "--num_processes", "1",
                      "--process_id", "0", *tiny])
     assert flags == plain
+
+
+def test_download_missing_prints_jaxs_line(monkeypatch, capsys):
+    """`download-missing --out_dir d --margin_days 5` with the download
+    stubbed alike in both packages: the same call and the same one line,
+    {"counties", "dates_fetched", "per_county"}; no --device."""
+    import datetime
+
+    from multimodal_outage_tpu.data import acquisition as jax_acq
+    from multimodal_outage_tpu_torch.data import acquisition as acq
+
+    d = datetime.date
+    fetched = {"alachua": [d(2022, 9, 26), d(2022, 9, 27)], "baker": [], "bay": [d(2018, 10, 1)]}
+    calls = []
+
+    def fake(out_dir, margin_days=90):
+        calls.append((out_dir, margin_days))
+        return {k: list(v) for k, v in fetched.items()}
+
+    monkeypatch.setattr(jax_acq, "download_missing_dates", fake)
+    monkeypatch.setattr(acq, "download_missing_dates", fake)
+    argv = ["download-missing", "--out_dir", "d", "--margin_days", "5"]
+    lines = []
+    for main in (jax_cli.main, cli.main):
+        assert main(argv) == 0
+        lines.append(capsys.readouterr().out.strip().splitlines())
+    assert lines[1] == lines[0] and len(lines[0]) == 1
+    assert json.loads(lines[0][0]) == {"counties": 3, "dates_fetched": 3,
+                                       "per_county": {"alachua": 2, "baker": 0, "bay": 1}}
+    assert calls == [("d", 5), ("d", 5)]
+    assert "--device" not in _options(cli._parser()._subparsers._group_actions[0]
+                                      .choices["download-missing"])

@@ -33,6 +33,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multimodal_outage_tpu_torch.core import tracing
+
 FrameTransform = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -188,16 +190,17 @@ class DevicePipeline:
     def batch(self, dataset, batch_idx: np.ndarray) -> Dict[str, torch.Tensor]:
         if self.mesh is not None:
             return self._mesh_batch(dataset, np.asarray(batch_idx))
-        pos = torch.from_numpy(dataset.window_positions(batch_idx)).to(
-            self.device
-        )
-        feats = torch.from_numpy(dataset.window_date_feats(batch_idx)).to(
-            self.device
-        )
-        return gather_windows(
-            self.frames, pos, feats, self.mean, self.std,
-            dataset.horizon, self.image_size, self.dtype, self.frame_transform,
-        )
+        with tracing.span("pipeline.batch"):
+            pos = dataset.window_positions(batch_idx)
+            feats = dataset.window_date_feats(batch_idx)
+            # plain copies from pageable memory: each waits for the stream
+            with tracing.span("pipeline.upload"):
+                pos = torch.from_numpy(pos).to(self.device)
+                feats = torch.from_numpy(feats).to(self.device)
+            return gather_windows(
+                self.frames, pos, feats, self.mean, self.std,
+                dataset.horizon, self.image_size, self.dtype, self.frame_transform,
+            )
 
     def _mesh_batch(self, dataset, batch_idx: np.ndarray) -> Dict[str, torch.Tensor]:
         from multimodal_outage_tpu_torch.core.mesh import DATA_AXIS, TIME_AXIS, local_batch_slice

@@ -26,6 +26,11 @@ prepares the st-GNN's weights and supports, once. The forward:
   U-Net expansion     4 × (ConvTranspose 2×2 → pad-to-match → concat skip →
                       DoubleConv), then the 1×1 head
 
+Spans (core/tracing.py, recorded only under a torch profiler): each
+single-device forward is an engine.forward root over engine.contraction,
+engine.st_gnn and engine.expansion, the three timed on the card; the
+root's own time is the bottleneck Dense layers and Date2Vec.
+
 Max-pool, Dense, ConvTranspose, concat and the 1×1 head are the ops the
 JAX engine leaves to XLA; here they stay PyTorch ops. Every batch size
 takes the same path: the JAX engine's B=1-only rule for the DCRNN kernel
@@ -52,6 +57,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from multimodal_outage_tpu_torch.core import tracing
 from multimodal_outage_tpu_torch.core.config import DataConfig, ModelConfig
 from multimodal_outage_tpu_torch.core.device import resolve_device
 from multimodal_outage_tpu_torch.core.metrics import (
@@ -305,49 +311,53 @@ class ServingModel:
                 )
             part = shard_batch(self.mesh, {"x": x, "date_feats": date_feats})
             return gather_output(self.forward_local(part["x"], part["date_feats"]), self.mesh)
-        cfg, dtype = self.cfg, self.dtype
+        cfg, dtype, card = self.cfg, self.dtype, self.device.type == "cuda"
         b, n, t, hh, ww, c_in = x.shape
         m = b * n * t
         dc = lambda v, fn_args: fn_args[0](v, *fn_args[1])
 
-        # contraction
-        y = dc(x.to(self.device, dtype).reshape(m, hh, ww, c_in).contiguous(), self._down[0])
-        skips = [y]
-        for i in range(1, cfg.depth + 1):
-            y = F.max_pool2d(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).contiguous()
-            y = dc(y, self._down[i])
-            if i < cfg.depth:
-                skips.append(y)
+        with tracing.span("engine.forward"):
+            with tracing.span("engine.contraction", device=card):
+                y = dc(x.to(self.device, dtype).reshape(m, hh, ww, c_in).contiguous(),
+                       self._down[0])
+                skips = [y]
+                for i in range(1, cfg.depth + 1):
+                    y = F.max_pool2d(y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1).contiguous()
+                    y = dc(y, self._down[i])
+                    if i < cfg.depth:
+                        skips.append(y)
 
-        # bottleneck encoder (float32 Dense, as the JAX engine's f32 params
-        # promote it) + Date2Vec in float32
-        z = y.reshape(b, n, t, -1).float()
-        for w, bias in self._encoder:
-            z = torch.relu(z @ w + bias)
-        te = date2vec.encode(date_feats.to(self.device), self._d2v).to(dtype).float()
-        te = te[:, None].expand(b, n, t, te.shape[-1])
-        z = torch.cat([z, te], -1).to(dtype).contiguous()
+            # bottleneck encoder (float32 Dense, as the JAX engine's f32
+            # params promote it) + Date2Vec in float32
+            z = y.reshape(b, n, t, -1).float()
+            for w, bias in self._encoder:
+                z = torch.relu(z @ w + bias)
+            te = date2vec.encode(date_feats.to(self.device), self._d2v).to(dtype).float()
+            te = te[:, None].expand(b, n, t, te.shape[-1])
+            z = torch.cat([z, te], -1).to(dtype).contiguous()
 
-        z = self._st_gnn(z)
+            with tracing.span("engine.st_gnn", device=card):
+                z = self._st_gnn(z)
 
-        # bottleneck decoder
-        d = z.float()
-        for w, bias in self._decoder:
-            d = torch.relu(d @ w + bias)
-        grid = hh // (2**cfg.depth)
-        y = d.reshape(m, grid, grid, -1).to(dtype)
+            # bottleneck decoder
+            d = z.float()
+            for w, bias in self._decoder:
+                d = torch.relu(d @ w + bias)
+            grid = hh // (2**cfg.depth)
+            y = d.reshape(m, grid, grid, -1).to(dtype)
 
-        # expansion
-        for i, (wt, bt, conv_args) in enumerate(self._up, start=1):
-            y = F.conv_transpose2d(y.permute(0, 3, 1, 2), wt, bt, stride=2).permute(0, 2, 3, 1)
-            skip = skips[-i]
-            dh, dw = skip.shape[1] - y.shape[1], skip.shape[2] - y.shape[2]
-            if dh or dw:
-                y = F.pad(y, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
-            y = dc(torch.cat([skip, y], -1).contiguous(), conv_args)
-        w, bias = self._outc
-        y = y @ w + bias
-        return y.reshape(b, n, t, hh, ww, -1).float()
+            with tracing.span("engine.expansion", device=card):
+                for i, (wt, bt, conv_args) in enumerate(self._up, start=1):
+                    y = F.conv_transpose2d(y.permute(0, 3, 1, 2), wt, bt,
+                                           stride=2).permute(0, 2, 3, 1)
+                    skip = skips[-i]
+                    dh, dw = skip.shape[1] - y.shape[1], skip.shape[2] - y.shape[2]
+                    if dh or dw:
+                        y = F.pad(y, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
+                    y = dc(torch.cat([skip, y], -1).contiguous(), conv_args)
+                w, bias = self._outc
+                y = y @ w + bias
+                return y.reshape(b, n, t, hh, ww, -1).float()
 
 
 def latency_percentiles(times_ms: List[float]) -> Dict[str, float]:

@@ -52,6 +52,7 @@ pickle: the ranks are spawned processes).
 from __future__ import annotations
 
 import gc
+import json
 import os
 import sys
 import time
@@ -61,6 +62,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from multimodal_outage_tpu_torch.core import tracing
 from multimodal_outage_tpu_torch.core.checkpoint import (
     CheckpointManager,
     require_checkpoints,
@@ -506,8 +508,10 @@ class _StepTrace:
     torch.profiler session, CPU activity plus the card's, from the
     process's local step `log_every` for `profile_steps` steps; at its
     end the device is synchronized and a Chrome trace is written to
-    <profile_dir>/trace.json. Leaving the `with` block closes and writes
-    a window the loop left open, also on an exception."""
+    <profile_dir>/trace.json, with the window's spans (core/tracing.py:
+    train.step and its phases, pipeline.batch) on a track of their own.
+    Leaving the `with` block closes and writes a window the loop left
+    open, also on an exception."""
 
     def __init__(self, profile_dir: Optional[str], start: int, steps: int, dev: torch.device):
         self.dir, self.start, self.stop_at, self.dev = profile_dir, start, start + steps, dev
@@ -519,6 +523,7 @@ class _StepTrace:
             if self.dev.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=acts)
+            tracing.clear()
             self.prof.start()
 
     def after_step(self, step_count: int) -> None:
@@ -538,8 +543,30 @@ class _StepTrace:
             torch.cuda.synchronize(self.dev)
         self.prof.stop()
         os.makedirs(self.dir, exist_ok=True)
-        self.prof.export_chrome_trace(os.path.join(self.dir, "trace.json"))
+        path = os.path.join(self.dir, "trace.json")
+        self.prof.export_chrome_trace(path)
+        merge_spans(path, tracing.spans())
+        tracing.clear()
         self.prof = None
+
+
+def merge_spans(path: str, spans: List[tracing.Span]) -> None:
+    """Adds spans to the Chrome trace at `path` as complete events on a
+    track of their own ("program spans"), on the file's time base (its
+    baseTimeNanoseconds, where it has one), so an operator sees the
+    program's phases beside the kernels."""
+    with open(path) as f:
+        trace = json.load(f)
+    base, track = trace.get("baseTimeNanoseconds", 0), "program spans"
+    trace["traceEvents"].append({"ph": "M", "name": "process_name", "pid": track, "tid": 0,
+                                 "args": {"name": track}})
+    trace["traceEvents"].extend(
+        {"ph": "X", "cat": "program_span", "name": s.name, "pid": track, "tid": 0,
+         "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+         "args": {"id": s.id, "parent": s.parent, "root": s.root, "device_ms": s.device_ms}}
+        for s in spans)
+    with open(path, "w") as f:
+        json.dump(trace, f)
 
 
 def fit(

@@ -12,6 +12,11 @@ first non-finite value, as the JAX package's jax_debug_nans does.
 make_accum_train_step runs one step as `accum` equal microbatches in
 order, each a forward and a backward that adds into .grad, then one Adam
 update with the mean of their gradients (JAX make_accum_train_step).
+
+Spans (core/tracing.py, recorded only under a torch profiler): each step
+is a train.step root over train.forward (forward and loss),
+train.backward and train.optimizer (Adam), the three timed on the card;
+an accumulating step has a forward and a backward span per microbatch.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from multimodal_outage_tpu_torch.core import tracing
 from multimodal_outage_tpu_torch.core.metrics import regression_metrics
 from multimodal_outage_tpu_torch.train.state import TrainState
 
@@ -84,23 +90,27 @@ def _check_finite(v: torch.Tensor, what: str, step: int) -> None:
 def _forward_backward(model: torch.nn.Module, batch: Batch, supports: Optional[torch.Tensor],
                       gen: torch.Generator, teacher: dict, debug_nans: bool,
                       step: int) -> torch.Tensor:
-    """One train-mode forward, its MSE and the backward that adds the
-    gradients into .grad; returns the detached prediction."""
+    """One train-mode forward and its MSE (span train.forward), and the
+    backward that adds the gradients into .grad (span train.backward);
+    returns the detached prediction."""
+    card = batch["x"].is_cuda
     anomaly = (torch.autograd.detect_anomaly(check_nan=True) if debug_nans
                else contextlib.nullcontext())
     with anomaly:
-        yhat = model(batch["x"], batch["date_feats"], supports, train=True, generator=gen,
-                     **teacher)
-        loss = torch.mean(torch.square(yhat - batch["y"]))
-        if debug_nans:
-            _check_finite(yhat, "forward output", step)
-            _check_finite(loss, "loss", step)
-        try:
-            loss.backward()
-        except RuntimeError as e:  # detect_anomaly's report of a NaN gradient
-            if debug_nans and "nan values" in str(e):
-                raise FloatingPointError(f"debug_nans: step {step}: {e}") from e
-            raise
+        with tracing.span("train.forward", device=card):
+            yhat = model(batch["x"], batch["date_feats"], supports, train=True, generator=gen,
+                         **teacher)
+            loss = torch.mean(torch.square(yhat - batch["y"]))
+            if debug_nans:
+                _check_finite(yhat, "forward output", step)
+                _check_finite(loss, "loss", step)
+        with tracing.span("train.backward", device=card):
+            try:
+                loss.backward()
+            except RuntimeError as e:  # detect_anomaly's report of a NaN gradient
+                if debug_nans and "nan values" in str(e):
+                    raise FloatingPointError(f"debug_nans: step {step}: {e}") from e
+                raise
     return yhat.detach()
 
 
@@ -123,18 +133,20 @@ def make_train_step(model: torch.nn.Module,
         state: TrainState, batch: Batch, supports: Optional[torch.Tensor],
         lr: float, seed: int,
     ) -> Dict[str, torch.Tensor]:
-        for p in params:
-            p.grad = None
-        gen = step_generator(seed, state.step, batch["x"].device)
-        kw = {}
-        if teacher:  # at the step count before this step increments it
-            kw = {"targets": batch["y"], "tf_prob": float(tf_schedule(model, state.step)),
-                  "sampling": sampling_generator(seed, state.step)}
-        yhat = _forward_backward(model, batch, supports, gen, kw, debug_nans, state.step)
-        state.opt.step(lr)
-        state.step += 1
-        with torch.no_grad():
-            return regression_metrics(yhat, batch["y"])
+        with tracing.span("train.step"):
+            for p in params:
+                p.grad = None
+            gen = step_generator(seed, state.step, batch["x"].device)
+            kw = {}
+            if teacher:  # at the step count before this step increments it
+                kw = {"targets": batch["y"], "tf_prob": float(tf_schedule(model, state.step)),
+                      "sampling": sampling_generator(seed, state.step)}
+            yhat = _forward_backward(model, batch, supports, gen, kw, debug_nans, state.step)
+            with tracing.span("train.optimizer", device=batch["x"].is_cuda):
+                state.opt.step(lr)
+            state.step += 1
+            with torch.no_grad():
+                return regression_metrics(yhat, batch["y"])
 
     return train_step
 
@@ -169,30 +181,32 @@ def make_accum_train_step(model: torch.nn.Module, accum: int,
         if b % accum:
             raise ValueError(f"batch of {b} does not split into {accum} equal microbatches")
         mb = b // accum
-        for p in params:
-            p.grad = None
-        tf_prob = float(tf_schedule(model, state.step)) if teacher else None
-        sums: Dict[str, torch.Tensor] = {}
-        for j in range(accum):
-            part = {k: v[j * mb:(j + 1) * mb] for k, v in batch.items()}
-            gen = microbatch_generator(seed, state.step, j, part["x"].device)
-            kw = {}
-            if teacher:
-                kw = {"targets": part["y"], "tf_prob": tf_prob,
-                      "sampling": sampling_generator(seed, state.step, j)}
-            yhat = _forward_backward(model, part, supports, gen, kw, debug_nans, state.step)
-            with torch.no_grad():
-                for k, v in regression_metrics(yhat, part["y"]).items():
-                    sums[k] = sums[k] + v if k in sums else v
-            del yhat
-        for p in params:
-            if p.grad is not None:
-                p.grad.div_(accum)
-        state.opt.step(lr)
-        state.step += 1
-        metrics = {k: v / accum for k, v in sums.items()}
-        metrics["rmse"] = torch.sqrt(metrics["loss"])
-        return metrics
+        with tracing.span("train.step"):
+            for p in params:
+                p.grad = None
+            tf_prob = float(tf_schedule(model, state.step)) if teacher else None
+            sums: Dict[str, torch.Tensor] = {}
+            for j in range(accum):
+                part = {k: v[j * mb:(j + 1) * mb] for k, v in batch.items()}
+                gen = microbatch_generator(seed, state.step, j, part["x"].device)
+                kw = {}
+                if teacher:
+                    kw = {"targets": part["y"], "tf_prob": tf_prob,
+                          "sampling": sampling_generator(seed, state.step, j)}
+                yhat = _forward_backward(model, part, supports, gen, kw, debug_nans, state.step)
+                with torch.no_grad():
+                    for k, v in regression_metrics(yhat, part["y"]).items():
+                        sums[k] = sums[k] + v if k in sums else v
+                del yhat
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(accum)
+            with tracing.span("train.optimizer", device=batch["x"].is_cuda):
+                state.opt.step(lr)
+            state.step += 1
+            metrics = {k: v / accum for k, v in sums.items()}
+            metrics["rmse"] = torch.sqrt(metrics["loss"])
+            return metrics
 
     return train_step
 

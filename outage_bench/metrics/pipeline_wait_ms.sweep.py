@@ -1,0 +1,9 @@
+"""Host ms of DevicePipeline.batch's upload (span pipeline.upload: the
+positions and date features copied from pageable memory, each copy
+waiting for the stream) per batch of the sweep."""
+
+from outage_bench import spans
+
+
+def read(ctx):
+    return spans.host_ms(ctx, "pipeline.upload")

@@ -327,14 +327,21 @@ def test_debug_nans_covers_the_backward():
 def test_profile_dir_and_tensorboard(log_every, steps, traced, tiny_store_dir, tmp_path):
     """fit with profile_dir writes <profile_dir>/trace.json once the
     process has run log_every steps (7 an epoch here), also when the loop
-    ends inside the window; tensorboard writes <run_dir>/tb scalars."""
+    ends inside the window, with the window's train step spans on a track
+    of their own; tensorboard writes <run_dir>/tb scalars."""
     prof = tmp_path / "prof"
     cfg = _fit_cfg(tiny_store_dir, log_every=log_every, profile_steps=steps,
                    profile_dir=str(prof), tensorboard=True)
     loop.fit(cfg, run_dir=str(tmp_path / "run"), progress=False, device="cpu")
     assert (prof / "trace.json").exists() == traced
     if traced:
-        assert json.load(open(prof / "trace.json"))["traceEvents"]
+        events = json.load(open(prof / "trace.json"))["traceEvents"]
+        assert events
+        spans = [e for e in events if e.get("cat") == "program_span"]
+        assert {e["pid"] for e in spans} == {"program spans"}
+        names = [e["name"] for e in spans]
+        assert {"train.step", "train.forward", "train.backward", "train.optimizer"} <= set(names)
+        assert names.count("train.step") == names.count("train.optimizer") >= min(steps, 2)
     assert glob.glob(str(tmp_path / "run" / "tb" / "events.out.tfevents*"))
 
 

@@ -12,11 +12,14 @@ which the engine serves through its eval-mode module (models/gwnet.py),
 not the stack kernel.
 
 Prints per batch size the forward's wall time (CUDA events, after a
-warm-up), then torch.profiler's device time per kernel name summed over
-the profiled forwards and divided by their count, grouped into the
-serving path's layers, and the device's busy share of the wall time
-(device kernel time ÷ wall time; the rest is the device idle, waiting on
-the host). Needs a CUDA card.
+warm-up), then, over the profiled forwards, the engine's stage table from
+the program's own spans (core/tracing.py: engine.contraction,
+engine.st_gnn, engine.expansion and the root engine.forward's own part,
+the bottleneck Dense layers and Date2Vec): host ms and device ms (the
+spans' CUDA events) per forward; the top kernels by device time; and the
+device's busy share of the wall time (the union of kernel intervals per
+forward ÷ wall, so overlapping kernels count once; the rest is the device
+idle, waiting on the host). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,32 +31,6 @@ import subprocess
 import sys
 from collections import defaultdict
 
-# kernel-name fragments → the layer of the serving path they belong to
-LAYERS = (
-    ("double_conv_kernel", "DoubleConv kernel"),
-    ("gwnet_stack_kernel", "Graph WaveNet stack kernel"),
-    ("dcrnn_stack_kernel", "DCRNN stack kernel"),
-    ("max_pool", "max-pool"),
-    ("conv_transpose", "ConvTranspose (cuDNN)"),
-    ("dgrad", "ConvTranspose (cuDNN)"),
-    ("fprop", "temporal conv1d (cuDNN)"),
-    ("convolve", "temporal conv1d (cuDNN)"),
-    ("gemm", "Dense / 1x1 head (cuBLAS)"),
-    ("gemv", "Dense / 1x1 head (cuBLAS)"),
-    ("cutlass", "Dense / 1x1 head (cuBLAS)"),
-    ("cat", "concat / copy / cast"),
-    ("copy", "concat / copy / cast"),
-    ("elementwise", "elementwise (bias, ReLU, casts)"),
-)
-
-
-def layer_of(name: str) -> str:
-    low = name.lower()
-    for frag, layer in LAYERS:
-        if frag.lower() in low:
-            return layer
-    return "other"
-
 
 def main() -> int:
     import torch
@@ -62,10 +39,12 @@ def main() -> int:
         print("profile_serve_torch: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from multimodal_outage_tpu_torch.core import tracing
     from multimodal_outage_tpu_torch.core.config import GWNetConfig, ModelConfig
     from multimodal_outage_tpu_torch.data.adjacency import model_supports
     from multimodal_outage_tpu_torch.serving import ServingModel
     from multimodal_outage_tpu_torch.weights import init_variables
+    from outage_bench.trace import union_length
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--st_gnn", choices=("gwnet", "dcrnn"), default="gwnet")
@@ -106,23 +85,30 @@ def main() -> int:
         walls.sort()
         wall = walls[len(walls) // 2]
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        tracing.clear()
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(args.repeats):
                 serve(x, feats)
             torch.cuda.synchronize()
-        per_kernel = defaultdict(float)
-        for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA:
-                per_kernel[ev.name] += ev.time_range.elapsed_us() / 1e3 / args.repeats
-        per_layer = defaultdict(float)
-        for name, ms in per_kernel.items():
-            per_layer[layer_of(name)] += ms
-        busy = sum(per_kernel.values())
+        spans = tracing.spans()
+        tracing.clear()
+        per_kernel, intervals = defaultdict(float), []
+        for ev in prof.profiler.kineto_results.events():
+            if ev.device_type() == torch.autograd.DeviceType.CUDA:
+                per_kernel[ev.name()] += ev.duration_ns() / 1e6 / args.repeats
+                intervals.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+        stages = defaultdict(lambda: {"host_ms": 0.0, "device_ms": 0.0})
+        for sp in spans:
+            stages[sp.name]["host_ms"] += sp.host_ms / args.repeats
+            stages[sp.name]["device_ms"] += (sp.device_ms or 0.0) / args.repeats
+        root = stages.pop("engine.forward")
+        stages["engine.forward (own)"] = {
+            "host_ms": root["host_ms"] - sum(v["host_ms"] for v in stages.values())}
+        busy = union_length(intervals) / 1e6 / args.repeats
         row = {
             "batch": b, "wall_ms_p50": wall, "wall_ms_all": walls,
-            "device_busy_ms": busy,
-            "device_busy_share": busy / wall if busy else None,
-            "layers_ms": dict(sorted(per_layer.items(), key=lambda kv: -kv[1])),
+            "device_busy_ms": busy, "device_busy_share": busy / wall if busy else None,
+            "forward_host_ms": root["host_ms"], "stages": dict(stages),
             "top_kernels_ms": dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]),
         }
         report[f"B={b}"] = row

@@ -9,17 +9,18 @@ a seed.
 
 For each batch size: whether the step fits in device memory and its
 peak (torch.cuda.max_memory_allocated); the step's wall time (CUDA
-events, p50 over --steps steps after two warm-up steps); the train-mode
-forward alone, whole and per top-level module (contraction, encoder,
-date2vec, st_gnn, decoder, expansion), and the Adam update alone (CUDA
-events, p50), so that backward ≈ step − forward − Adam; and
-torch.profiler's device time per kernel over --steps steps, divided by
-their count and grouped by kind of work, with the device's busy share of
-the wall time. A batch size that runs out of memory is reported as not
-fitting, with the peak reached before the failure. With --st_gnn dcrnn
-the st-GNN is the default DCRNN over the Florida graph's dual-random-walk
-supports, and with --teacher_forcing each step also encodes the batch's
-future frames (the eval-mode teacher pass). Needs a CUDA card.
+events, p50 over --steps steps after two warm-up steps); then, over
+--steps profiled steps, the step's phases from the program's own spans
+(core/tracing.py: train.forward, forward and loss; train.backward;
+train.optimizer, Adam) in device ms (the spans' CUDA events) and host ms
+per step, torch.profiler's device time per kernel grouped by kind of
+work, and the device's busy share of the wall time (the union of kernel
+intervals per step ÷ wall, so overlapping kernels count once). A batch
+size that runs out of memory is reported as not fitting, with the peak
+reached before the failure. With --st_gnn dcrnn the st-GNN is the
+default DCRNN over the Florida graph's dual-random-walk supports, and
+with --teacher_forcing each step also encodes the batch's future frames
+(the eval-mode teacher pass, inside train.forward). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -65,41 +66,6 @@ def p50(times):
     return times[len(times) // 2]
 
 
-def forward_split(torch, model, batch, sup, reps: int, **kw):
-    """p50 CUDA-event ms of the train-mode forward (graph built, no
-    backward), whole and per top-level module; a module called twice in a
-    forward (the contraction and encoder with the teacher pass, given
-    kw = targets, tf_prob) counts both calls."""
-    marks, hooks = {}, []
-    for name, mod in model.named_children():
-        def pre(m, inp, name=name):
-            marks.setdefault(name, []).append([len(whole), torch.cuda.Event(enable_timing=True),
-                                               None])
-            marks[name][-1][1].record()
-
-        def post(m, inp, out, name=name):
-            marks[name][-1][2] = torch.cuda.Event(enable_timing=True)
-            marks[name][-1][2].record()
-
-        hooks += [mod.register_forward_pre_hook(pre), mod.register_forward_hook(post)]
-    whole = []
-    try:
-        for _ in range(reps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            y = model(batch["x"], batch["date_feats"], sup, train=True, **kw)
-            end.record()
-            end.synchronize()
-            whole.append(start.elapsed_time(end))
-            del y
-    finally:
-        for h in hooks:
-            h.remove()
-    torch.cuda.synchronize()
-    per_rep = lambda v: [sum(a.elapsed_time(b) for r_, a, b in v if r_ == r) for r in range(reps)]
-    return p50(whole), {k: p50(per_rep(v)) for k, v in marks.items()}
-
-
 def main() -> int:
     import torch
 
@@ -107,16 +73,14 @@ def main() -> int:
         print("profile_train_torch: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from multimodal_outage_tpu_torch.core import tracing
     from multimodal_outage_tpu_torch.core.config import DCRNNConfig, ModelConfig
     from multimodal_outage_tpu_torch.data.adjacency import model_supports
     from multimodal_outage_tpu_torch.models.fusion import build_model
     from multimodal_outage_tpu_torch.train.state import create_train_state
-    from multimodal_outage_tpu_torch.train.steps import (
-        make_train_step,
-        tf_schedule,
-        uses_teacher_forcing,
-    )
+    from multimodal_outage_tpu_torch.train.steps import make_train_step
     from multimodal_outage_tpu_torch.weights import init_variables, load_variables
+    from outage_bench.trace import union_length
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, nargs="+", default=[8, 16])
@@ -164,42 +128,37 @@ def main() -> int:
                 end.record()
                 end.synchronize()
                 walls.append(start.elapsed_time(end))
-            tf = {}
-            if uses_teacher_forcing(model):
-                tf = {"targets": batch["y"], "tf_prob": float(tf_schedule(model, state.step))}
-            fwd_ms, fwd_modules = forward_split(torch, model, batch, sup, args.steps, **tf)
-            adam = []
-            for _ in range(args.steps):
-                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                start.record()
-                state.opt.step(1e-3)
-                end.record()
-                end.synchronize()
-                adam.append(start.elapsed_time(end))
             acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+            tracing.clear()
             with torch.profiler.profile(activities=acts) as prof:
                 for _ in range(args.steps):
                     step(state, batch, sup, 1e-3, 0)
                 torch.cuda.synchronize()
+            spans = tracing.spans()
+            tracing.clear()
         except torch.cuda.OutOfMemoryError as e:
             row.update(fits=False, peak_bytes=torch.cuda.max_memory_allocated(),
                        error=str(e).splitlines()[0])
         else:
-            per_kernel = defaultdict(float)
-            for ev in prof.events():
-                if ev.device_type == torch.autograd.DeviceType.CUDA:
-                    per_kernel[ev.name] += ev.time_range.elapsed_us() / 1e3 / args.steps
+            per_kernel, intervals = defaultdict(float), []
+            for ev in prof.profiler.kineto_results.events():
+                if ev.device_type() == torch.autograd.DeviceType.CUDA:
+                    per_kernel[ev.name()] += ev.duration_ns() / 1e6 / args.steps
+                    intervals.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
             per_kind = defaultdict(float)
             for name, ms in per_kernel.items():
                 per_kind[kind_of(name)] += ms
-            busy = sum(per_kernel.values())
+            phases = defaultdict(lambda: {"host_ms": 0.0, "device_ms": 0.0})
+            for sp in spans:
+                if sp.name != "train.step":
+                    phases[sp.name]["host_ms"] += sp.host_ms / args.steps
+                    phases[sp.name]["device_ms"] += (sp.device_ms or 0.0) / args.steps
+            busy = union_length(intervals) / 1e6 / args.steps
             wall = p50(walls)
             row.update(
                 fits=True, peak_bytes=torch.cuda.max_memory_allocated(),
-                step_ms_p50=wall, step_ms_all=walls, forward_ms_p50=fwd_ms,
-                forward_modules_ms_p50=fwd_modules, adam_ms_p50=p50(adam),
-                backward_ms_est=wall - fwd_ms - p50(adam), device_busy_ms=busy,
-                device_busy_share=busy / wall if busy else None,
+                step_ms_p50=wall, step_ms_all=walls, phases=dict(phases),
+                device_busy_ms=busy, device_busy_share=busy / wall if busy else None,
                 kinds_ms=dict(sorted(per_kind.items(), key=lambda kv: -kv[1])),
                 top_kernels_ms=dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:15]),
             )

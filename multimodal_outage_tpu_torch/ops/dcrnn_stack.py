@@ -13,15 +13,32 @@ dcrnn_stack_pallas.py:126-166). stack_params_to puts them on the device;
 in bfloat16 it also lays them out once in mma.sync B-fragment order
 (stack_fragments, ops/fragments.py pack_fragments) for the kernel's
 tensor-core body.
+
+The bf16 body runs each sample on a thread-block cluster of C CTAs, one
+per SM, each owning U/(4C) unit quads (their r, u and c columns) and a
+slice of the output columns, with its slice of the projection weights
+resident in shared memory and the states exchanged through distributed
+shared memory (two cluster barriers a cell); the encoder's layer-0 x
+part, which no state enters, is a prepass spread over the cluster. What
+bounds it now: the Chebyshev chains of the narrow inputs, which every CTA
+computes whole on mma.sync, latency-bound, and the barriers. stack_plan
+chooses C and lays out each CTA's shared memory: a plain function of the
+shapes, the batch and how many clusters of each size the card runs at
+once (the wrapper asks the card, cudaOccupancyMaxActiveClusters, and
+keeps the answer); the fewest waves of clusters wins, then the largest C.
+
 dcrnn_stack_forward is the wrapper: on CUDA tensors it launches the
 kernel or raises; on CPU tensors it runs stack_forward_reference, the
-plain PyTorch version the kernel is held against.
+plain PyTorch version the kernel is held against. Counters:
+dcrnn_stack_forward.launches, and .ctas_per_sample {C: launches} (the
+float32 body runs one block per sample, C = 1).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +53,11 @@ from multimodal_outage_tpu_torch.ops.fragments import (  # noqa: F401 (re-export
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _CELL_KEYS = ("gx", "gh", "gb", "cx", "ch", "cb")
+
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may opt in to on the H100
+_WARPS = 16           # warps of a CTA (csrc/dcrnn_stack.cu kThreads / 32)
+_CHUNK = 64           # input columns per x-part chain pass (kChunk)
+_CLUSTERS = (16, 8, 4, 2, 1)  # CTAs per sample tried; 16 is Hopper's largest cluster
 
 
 def dcrnn_stack_params(
@@ -113,6 +135,89 @@ def stack_fragments(sp: Dict[str, Any]) -> Dict[str, Any]:
         for gx, gh, _, cx, ch, _ in sp["cells"]
     ]
     return {"cells": cells, "proj": pack_fragments(sp["proj_w"][None])}
+
+
+def cluster_layout(n: int, layers: int, s_count: int, order: int, dx0: int, dout: int,
+                   units: int, c: int, smem_limit: int = SMEM_LIMIT) -> Optional[Dict[str, Any]]:
+    """The shared memory of one CTA of the bf16 body with c CTAs per
+    sample, or None where c does not split the unit quads or the buffers
+    alone exceed smem_limit. Byte offsets, each region 16-byte aligned:
+    at (the transposed supports), states (every layer's whole state), rh,
+    terms (the nt Chebyshev terms), acc (the own columns' float32 sums),
+    slots (split k-step partial sums), bias (every cell's biases, float32),
+    then the resident weight slices:
+    the h and r⊙h parts of every cell first, then the x parts of all cells
+    but encoder layer 0 (the prepass's), each where it still fits; the
+    rest is read from L2. "resident"[cell][part] is the offset of the slice
+    of part 0 wx, 1 wh, 2 wr, or -1."""
+    quads = units // 4
+    if units % 4 or c < 1 or quads % c:
+        return None
+    nq, np_, up, nt = quads // c, _up(n, 16), _up(units, 16), s_count * order + 1
+    ncv = (nq + 1) // 2
+    lay = {"C": c, "quads": nq, "ld_at": np_ + 8, "ld_t": max(up, _CHUNK) + 8,
+           "ld_acc": _up(8 * (nq + ncv), 32) + 8}
+    total = 0
+    for name, size in (("at", 2 * s_count * np_ * lay["ld_at"]),
+                       ("states", 2 * layers * np_ * lay["ld_t"]),
+                       ("rh", 2 * np_ * lay["ld_t"]),
+                       ("terms", 2 * nt * np_ * lay["ld_t"]),
+                       ("acc", 4 * np_ * lay["ld_acc"]),
+                       ("slots", 4 * _WARPS * 128),
+                       ("bias", 4 * 2 * layers * (_up(2 * units, 8) + _up(units, 8)))):
+        lay[name] = total
+        total += _up(size, 16)
+    lay["weights"] = total
+    if total > smem_limit:
+        return None
+    halves = (3 * nq, 2 * nq, nq)  # wx, wh, wr: quads of the slice
+
+    def k_steps(cell: int, part: int) -> int:
+        dx = units if cell % layers else (dout if cell else dx0)
+        return nt * _up(dx if part == 0 else units, 16) // 16
+
+    resident = [[-1, -1, -1] for _ in range(2 * layers)]
+    for cell, part in ([(cl, pt) for pt in (1, 2) for cl in range(2 * layers)]
+                       + [(cl, 0) for cl in range(1, 2 * layers)]):
+        size = halves[part] * k_steps(cell, part) * 128
+        if total + size <= smem_limit:
+            resident[cell][part] = total
+            total += size
+    lay["resident"] = resident
+    lay["total"] = total
+    return lay
+
+
+def stack_plan(b: int, n: int, layers: int, s_count: int, order: int, dx0: int, dout: int,
+               units: int, active: Mapping[int, int],
+               smem_limit: int = SMEM_LIMIT) -> Dict[str, Any]:
+    """CTAs per sample C and the layout of each (cluster_layout) for a
+    batch of b. active[c] is how many clusters of c CTAs the card runs at
+    once with that layout's shared memory (0 or absent: none). Among the
+    C in (16, 8, 4, 2, 1) whose layout fits and that the card runs, the
+    fewest waves ⌈b / active[C]⌉ win, then the largest C. Raises where none
+    fits."""
+    best = None
+    for c in _CLUSTERS:
+        lay = cluster_layout(n, layers, s_count, order, dx0, dout, units, c, smem_limit)
+        if lay is None or active.get(c, 0) < 1:
+            continue
+        waves = -(-b // active[c])
+        if best is None or waves < best[0]:
+            best = (waves, lay)
+    if best is None:
+        raise ValueError(
+            f"dcrnn_stack_forward: no cluster split of N={n}, U={units} fits one block's "
+            f"{smem_limit} bytes of shared memory on this card")
+    return best[1]
+
+
+def plan_ints(lay: Dict[str, Any]) -> list:
+    """The plan as the bf16 launcher takes it (csrc/dcrnn_stack.cu
+    dcrnn_stack_launch_bf16)."""
+    keys = ("C", "ld_at", "ld_t", "ld_acc", "at", "states", "rh", "terms", "acc", "slots",
+            "bias", "weights", "total")
+    return [lay[k] for k in keys] + [o for cell in lay["resident"] for o in cell]
 
 
 def stack_forward_reference(
@@ -236,15 +341,22 @@ def dcrnn_stack_forward(
     if any(v % 4 for v in (dx0, dout, u)) or L > 4:
         raise ValueError("dcrnn_stack_forward: widths must be multiples of 4 and layers <= 4")
     bf16 = x.dtype == torch.bfloat16
+    lib = _lib()
     if bf16:
         frags = _check_fragments(sp, nt, dx0, dout, u, L)
-    lib = _lib()
-    smem = lib.dcrnn_stack_smem_bytes(n, u, L, s_count, max_diffusion_step, int(bf16))
-    if smem > 227 * 1024:
-        raise ValueError(
-            f"dcrnn_stack_forward: {smem} bytes of shared memory for N={n}, "
-            f"U={u} exceed one block's 227 KB"
-        )
+        lay = _plan(b, n, L, s_count, max_diffusion_step, dx0, dout, u, x.device)
+        c = lay["C"]
+        nch = -(-_up(dx0, 16) // _CHUNK)
+        part = torch.empty(b * t * nch * _up(n, 16) * (_up(2 * u, 8) + _up(u, 8)),
+                           dtype=torch.float32, device=x.device)
+    else:
+        c = 1
+        smem = lib.dcrnn_stack_smem_bytes_f32(n, u, L, s_count)
+        if smem > 227 * 1024:
+            raise ValueError(
+                f"dcrnn_stack_forward: {smem} bytes of shared memory for N={n}, "
+                f"U={u} exceed one block's 227 KB"
+            )
     y = torch.empty((b, n, horizon, dout), dtype=x.dtype, device=x.device)
     dims = (b, n, t, horizon, L, s_count, max_diffusion_step, dx0, dout, u)
     with torch.cuda.device(x.device):
@@ -255,7 +367,8 @@ def dcrnn_stack_forward(
                 for v in (wx, wh, wr, cell[2], cell[5])))
             code = lib.dcrnn_stack_launch_bf16(
                 x.data_ptr(), supports.data_ptr(), cells, frags["proj"].data_ptr(),
-                sp["proj_b"].data_ptr(), y.data_ptr(), *dims, stream)
+                sp["proj_b"].data_ptr(), y.data_ptr(), part.data_ptr(), *dims, lay["ints"],
+                stream)
         else:
             cells = (ctypes.c_void_p * (12 * L))(
                 *(w.data_ptr() for cell in sp["cells"] for w in cell))
@@ -264,10 +377,13 @@ def dcrnn_stack_forward(
                 sp["proj_b"].data_ptr(), y.data_ptr(), *dims, stream)
     _build.check(lib, code, "dcrnn_stack")
     dcrnn_stack_forward.launches += 1
+    counts = dcrnn_stack_forward.ctas_per_sample
+    counts[c] = counts.get(c, 0) + 1
     return y
 
 
 dcrnn_stack_forward.launches = 0
+dcrnn_stack_forward.ctas_per_sample = {}
 
 
 def _check_fragments(sp: Dict[str, Any], nt: int, dx0: int, dout: int, u: int,
@@ -294,15 +410,38 @@ def _check_fragments(sp: Dict[str, Any], nt: int, dx0: int, dout: int, u: int,
     return frags
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(b: int, n: int, layers: int, s_count: int, order: int, dx0: int, dout: int,
+          units: int, device: torch.device) -> Dict[str, Any]:
+    """stack_plan for these shapes on `device`, asking the card how many
+    clusters of each candidate layout it runs at once (a size the card
+    refuses counts as none), with "ints", the plan as the launcher takes
+    it."""
+    lib, active = _lib(), {}
+    with torch.cuda.device(device):
+        for c in _CLUSTERS:
+            lay = cluster_layout(n, layers, s_count, order, dx0, dout, units, c)
+            if lay is not None:
+                count = ctypes.c_int(0)
+                code = lib.dcrnn_stack_max_clusters(c, lay["total"], ctypes.byref(count))
+                active[c] = count.value if code == 0 else 0
+    lay = stack_plan(b, n, layers, s_count, order, dx0, dout, units, active)
+    ints = plan_ints(lay)
+    return {**lay, "ints": (ctypes.c_int * len(ints))(*ints)}
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("dcrnn_stack")
     if lib.dcrnn_stack_launch_f32.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
+        lib.dcrnn_stack_launch_f32.argtypes = [p] * 6 + [i] * 10 + [p]
+        lib.dcrnn_stack_launch_bf16.argtypes = [p] * 7 + [i] * 10 + [ctypes.POINTER(i), p]
         for fn in (lib.dcrnn_stack_launch_f32, lib.dcrnn_stack_launch_bf16):
-            fn.argtypes = [p] * 6 + [i] * 10 + [p]
             fn.restype = i
-        lib.dcrnn_stack_smem_bytes.argtypes = [i] * 6
-        lib.dcrnn_stack_smem_bytes.restype = i
+        lib.dcrnn_stack_smem_bytes_f32.argtypes = [i] * 4
+        lib.dcrnn_stack_smem_bytes_f32.restype = i
+        lib.dcrnn_stack_max_clusters.argtypes = [i, i, ctypes.POINTER(i)]
+        lib.dcrnn_stack_max_clusters.restype = i
     return lib
 
 

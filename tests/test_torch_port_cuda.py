@@ -509,14 +509,27 @@ def _dcrnn_case(full: bool, b: int, dtype, device, layers=2, k=2, units=8, dout=
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("full,b,layers,k", [(True, 1, 2, 2), (True, 3, 2, 2),
-                                              (False, 2, 3, 1), (False, 2, 2, 3)])
+@pytest.mark.parametrize("full,b,layers,k", [(True, 1, 2, 2), (True, 3, 2, 2), (True, 16, 2, 2),
+                                              (True, 17, 2, 2), (False, 2, 3, 1),
+                                              (False, 2, 2, 3)])
 def test_dcrnn_stack_kernel_matches_plain(cuda, dtype, full, b, layers, k):
+    """Every split the plan picks (B = 16 and 17 at full width: a smaller
+    cluster, a ragged last wave) against the plain version; one launch a
+    call, its CTAs per sample counted (C >= 8 at B=1, full width, bf16;
+    one block a sample in float32)."""
     x, sup, sp, kw = _dcrnn_case(full, b, dtype, cuda, layers, k)
     before = dsm.dcrnn_stack_forward.launches
+    ctas = dict(dsm.dcrnn_stack_forward.ctas_per_sample)
     got = dsm.dcrnn_stack_forward(x, sup, sp, **kw)
     torch.cuda.synchronize()
     assert dsm.dcrnn_stack_forward.launches == before + 1
+    grew = {c: v - ctas.get(c, 0) for c, v in dsm.dcrnn_stack_forward.ctas_per_sample.items()
+            if v != ctas.get(c, 0)}
+    assert list(grew.values()) == [1], grew
+    if dtype == torch.float32:
+        assert list(grew) == [1]
+    elif full and b == 1:
+        assert list(grew)[0] >= 8, grew
     want = dsm.stack_forward_reference(x, sup, sp, **kw)
     f32 = lambda v: v.float()
     sp32 = {"cells": [tuple(map(f32, c)) for c in sp["cells"]],

@@ -11,6 +11,8 @@ general reader of its file's parameters:
   train        the program's train step at `batch` on windows of the
                storms other than `test_case`, shuffled per epoch from the
                seed, the cosine schedule per epoch; tiles / window time
+               (the mix's "model" group, such as a scheduled-sampling
+               rate, reaches the program and the reference alike)
 
 Every driver: setup() makes the inputs from the seed, builds the program
 and warms the cell's own shapes; measure(seconds) runs the window;
@@ -57,6 +59,7 @@ class Driver:
         from outage_bench import program
 
         self.program = program
+        ref.family(self.model)  # an unknown st-GNN fails here, naming the file it lacks
         self.dates = inputs.store_dates(self.tr["store"])
         frames = inputs.make_frames(self.tr["store"], self.n, self.size, self.seed, self.device)
         self.frames = frames.cpu().numpy()  # the store as the program loads it: a host array
@@ -253,18 +256,26 @@ class Train(Driver):
         params = self.program.named_parameters(self.state)
         p0 = {k: v.detach().clone() for k, v in params.items()}
         self.first: List[np.ndarray] = []
-        losses = []
+        losses, grads = [], []
+        mu_prev: Dict[str, torch.Tensor] = {}
         self.input_ev: List[Tuple] = []
         for s in range(self.tr["check_steps"]):
             idx = self.next_idx()
             self.first.append(idx)
             losses.append(self.train_step(idx)["loss"])
+            mu = self.program.adam_moments(self.state)
             if s == 0:
-                mu = self.program.adam_moments(self.state)
                 grad1 = {k: mu[k].detach() / (1 - check.B1) for k in mu}
+            # each step's gradient from the first moment, mu_s = b1 mu_(s-1) + (1 - b1) g_s,
+            # kept on the host
+            grads.append({k: ((mu[k].detach() - check.B1 * mu_prev[k]) / (1 - check.B1)
+                              if k in mu_prev else mu[k].detach() / (1 - check.B1)).cpu()
+                          for k in mu})
+            mu_prev = {k: v.detach().clone() for k, v in mu.items()}
+        del mu_prev
         self.mark("first steps")
         self.prog = {"loss": [float(v) for v in losses],
-                     "grad1": {k: v.clone() for k, v in grad1.items()},
+                     "grad1": {k: v.clone() for k, v in grad1.items()}, "grads": grads,
                      "change": {k: params[k].detach() - p0[k] for k in params}}
         self.input_ev.clear()
 
@@ -311,18 +322,29 @@ class Train(Driver):
         return {self.tr["rate_metric"]: done * self.b * self.n * self.horizon / sec}
 
     def check(self) -> Dict[str, float]:
-        return check.train_gaps(self.prog, self.reference())
+        """The gaps the cell's limits name; the bf16 yardstick's steps, and
+        the untaught reference's (every coin tails), are run only where a
+        limit reads against them."""
+        names = self.cell.limits
+        taught = "teacher_gap_ratio" in names
+        refd = self.reference()
+        yard = (self.reference(ref.bf16) if taught or any(k.endswith("_vs_bf16") for k in names)
+                else None)
+        untaught = self.reference(heads=lambda c: [False] * len(c)) if taught else None
+        return check.train_gaps(self.prog, refd, yard, untaught)
 
-    def reference(self, quant=ref.ident, use_rows: Optional[int] = None) -> Dict:
-        """The reference's first steps (the program freed first)."""
+    def reference(self, quant=ref.ident, use_rows: Optional[int] = None, heads=None,
+                  lr: Optional[float] = None) -> Dict:
+        """The reference's first steps (the program freed first); lr 0 is
+        the fault of a step that leaves its parameters unchanged."""
         _sync(self.device)
         self.free_program()
-        lr0 = self.cell.config["train"]["lr"]
+        lr = self.cell.config["train"]["lr"] if lr is None else lr
         batches = [self.ref_batch(self.positions, idx) for idx in self.first]
         with ref.tf32_off():
             return check.reference_train(self.variables, self.model, batches, self.sup,
-                                         self.drop_seed, [lr0] * len(batches),
-                                         self.tr["ref_rows"], quant, use_rows)
+                                         self.drop_seed, [lr] * len(batches),
+                                         self.tr["ref_rows"], quant, use_rows, heads)
 
 
 DRIVERS = {"closed_loop": ClosedLoop, "sweep": Sweep, "train": Train}

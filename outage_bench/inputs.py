@@ -21,6 +21,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from outage_bench.reference import model as ref
+
 ADJ_CSV = os.path.join(os.path.dirname(os.path.abspath(__file__)), "reference", "adj_mx_fl.csv")
 
 
@@ -148,10 +150,8 @@ def static_supports(kind: str, n: int) -> np.ndarray:
 
 
 def support_kind(model: Dict) -> str:
-    if model["st_gnn"] == "dcrnn":
-        return {"dual_random_walk": "doubletransition", "random_walk": "transition",
-                "identity": "identity"}[model["dcrnn"]["filter_type"]]
-    return model["gwnet"]["adjtype"]
+    """The static supports the model's st-GNN family reads."""
+    return ref.family(model).support_kind(model)
 
 
 # --- the variables tree -------------------------------------------------------
@@ -182,27 +182,17 @@ D2V_SCALE = (1.0, 1.0, 1.0, 2000.0, 6.5, 15.5)
 
 def variables_layout(model: Dict, n: int, size: int, n_static: int) -> List[Tuple[str, tuple, str]]:
     """(path, shape, kind) of every leaf of the program's variables tree
-    (its weights.init_variables) for the fused Graph WaveNet or DCRNN.
+    (its weights.init_variables), the st-GNN's from its family file.
     kind: "w:<fan_in>" a lecun-normal kernel, "d2v:<fan_in>" a Date2Vec
     kernel, "zero", "one", "bn_scale", "bn_bias", "bn_mean", "bn_var",
     "node" an N(0, 1) node embedding."""
     out: List[Tuple[str, tuple, str]] = []
 
-    def dense(path, cin, cout, kind="w"):
-        out.append((f"params/{path}/kernel", (cin, cout), f"{kind}:{cin}"))
-        out.append((f"params/{path}/bias", (cout,), "zero"))
-
-    def bn(path, c):
-        for leaf in ("scale", "bias"):
-            out.append((f"params/{path}/{leaf}", (c,), f"bn_{leaf}"))
-        for leaf in ("mean", "var"):
-            out.append((f"batch_stats/{path}/{leaf}", (c,), f"bn_{leaf}"))
-
     def double_conv(path, cin, c):
         out.append((f"params/{path}/conv1/kernel", (3, 3, cin, c), f"w:{9 * cin}"))
         out.append((f"params/{path}/conv2/kernel", (3, 3, c, c), f"w:{9 * c}"))
-        bn(f"{path}/bn1", c)
-        bn(f"{path}/bn2", c)
+        out.extend(ref.bn_leaves(f"{path}/bn1", c))
+        out.extend(ref.bn_leaves(f"{path}/bn2", c))
 
     depth, base = model["depth"], model["base_channels"]
     double_conv("contraction/inc", model["input_channels"], base)
@@ -213,43 +203,13 @@ def variables_layout(model: Dict, n: int, size: int, n_static: int) -> List[Tupl
     grid = size // 2**depth
     flat = grid * grid * ch
     fvs, k = model["feature_vector_size"], model["time_embed_size"]
-    dense("encoder/fc1", flat, flat // model["compression_factor"])
-    dense("encoder/fc2", flat // model["compression_factor"], fvs)
-    dense("date2vec/fc1", 6, k // 2, "d2v")
-    dense("date2vec/fc2", 6, k // 2 + k % 2, "d2v")
-    cin = fvs + k
-    if model["st_gnn"] == "dcrnn":
-        d = model["dcrnn"]
-        u, nt = d["rnn_units"], 1 + n_static * d["max_diffusion_step"]
-        for part, d0 in (("encoder", cin), ("decoder", fvs)):
-            for l in range(d["num_rnn_layers"]):
-                dx = d0 if l == 0 else u
-                dense(f"st_gnn/{part}/cell{l}/gates/proj", nt * (dx + u), 2 * u)
-                out[-1] = (out[-1][0], out[-1][1], "one")  # gate bias 1.0
-                dense(f"st_gnn/{part}/cell{l}/candidate/proj", nt * (dx + u), u)
-        dense("st_gnn/decoder/proj", u, fvs)
-    else:
-        g = model["gwnet"]
-        c, cd, cs, ce = (g["residual_channels"], g["dilation_channels"], g["skip_channels"],
-                         g["end_channels"])
-        if g["kernel_size"] != 1 or not g["gcn_bool"]:
-            raise NotImplementedError("the benchmark's layout covers the fused Graph WaveNet")
-        adaptive = g["addaptadj"]
-        nt = (n_static + int(adaptive)) * g["order"] + 1
-        dense("st_gnn/start_conv", cin, c)
-        if adaptive:
-            out.append(("params/st_gnn/nodevec1", (n, g["node_embed_dim"]), "node"))
-            out.append(("params/st_gnn/nodevec2", (g["node_embed_dim"], n), "node"))
-        for i in range(g["blocks"] * g["layers"]):
-            for name, (a, b) in (("filter_conv", (c, cd)), ("gate_conv", (c, cd)),
-                                 ("skip_conv", (cd, cs)), ("gconv", (nt * cd, c))):
-                out.append((f"params/st_gnn/{name}{i}_kernel", (a, b), f"w:{a}"))
-                out.append((f"params/st_gnn/{name}{i}_bias", (b,), "zero"))
-            bn(f"st_gnn/bn{i}", c)
-        dense("st_gnn/end_conv_1", cs, ce)
-        dense("st_gnn/end_conv_2", ce, fvs)
-    dense("decoder/fc1", fvs, fvs * model["compression_factor"])
-    dense("decoder/fc2", fvs * model["compression_factor"], flat)
+    out += ref.dense_leaves("encoder/fc1", flat, flat // model["compression_factor"])
+    out += ref.dense_leaves("encoder/fc2", flat // model["compression_factor"], fvs)
+    out += ref.dense_leaves("date2vec/fc1", 6, k // 2, "d2v")
+    out += ref.dense_leaves("date2vec/fc2", 6, k // 2 + k % 2, "d2v")
+    out += ref.family(model).layout(model, n, n_static)
+    out += ref.dense_leaves("decoder/fc1", fvs, fvs * model["compression_factor"])
+    out += ref.dense_leaves("decoder/fc2", fvs * model["compression_factor"], flat)
     skip = base * 2 ** (depth - 1)
     for i in range(1, depth + 1):
         out.append((f"params/expansion/up{i}/up/kernel", (2, 2, ch, ch // 2), f"w:{4 * ch}"))
@@ -265,7 +225,7 @@ def variables_layout(model: Dict, n: int, size: int, n_static: int) -> List[Tupl
 def make_variables(model: Dict, n: int, size: int, n_static: int, seed: int, device) -> Dict:
     """The variables tree {"params", "batch_stats"} as float32 tensors on
     `device`: lecun-normal kernels (truncated at 2 sigma), zero biases,
-    DCRNN gate biases 1.0, N(0, 1) node embeddings, and BatchNorm scales,
+    biases of kind "one" 1.0, N(0, 1) node embeddings, and BatchNorm scales,
     shifts and running statistics spread about their initial values, so
     that folding them matters."""
     layout = variables_layout(model, n, size, n_static)

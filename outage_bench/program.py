@@ -6,12 +6,14 @@ benchmark made, and returns them; the drivers call their entry points.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from multimodal_outage_tpu_torch.core.config import DCRNNConfig, GWNetConfig, ModelConfig
+from multimodal_outage_tpu_torch.core.config import ModelConfig
 from multimodal_outage_tpu_torch.data.dataset import WindowDataset
 from multimodal_outage_tpu_torch.data.pipeline import DevicePipeline
 from multimodal_outage_tpu_torch.data.store import NTLStore
@@ -23,11 +25,15 @@ from multimodal_outage_tpu_torch.weights import load_variables
 
 
 def model_config(model: Dict) -> ModelConfig:
-    """The configuration file's "model" group as the program's ModelConfig
-    (every key a field of it; gwnet and dcrnn nested)."""
-    top = {k: v for k, v in model.items() if k not in ("gwnet", "dcrnn")}
-    return ModelConfig(gwnet=GWNetConfig(**model["gwnet"]), dcrnn=DCRNNConfig(**model["dcrnn"]),
-                       **top)
+    """The configuration file's "model" group as the program's ModelConfig:
+    every key a field of it, each nested group that the model group holds
+    built as the dataclass of that field's default."""
+    defaults = ModelConfig()
+    kw = {}
+    for k, v in model.items():
+        group = getattr(defaults, k, None)
+        kw[k] = type(group)(**v) if dataclasses.is_dataclass(group) else v
+    return ModelConfig(**kw)
 
 
 def store(frames: np.ndarray, dates: np.ndarray, n: int) -> NTLStore:
@@ -58,6 +64,21 @@ def trainer(model: Dict, variables: Dict, horizon: int, n: int, size: int,
     load_variables(m, variables)
     m.to(device)
     return m, create_train_state(m), make_train_step(m)
+
+
+@contextlib.contextmanager
+def teacher_ignored():
+    """A planted fault (for calibration and tests): the program's
+    scheduled-sampling probability held at 0, so that its decoder is fed
+    its own output at every step while the teacher pass still runs."""
+    from multimodal_outage_tpu_torch.train import steps
+
+    schedule = steps.tf_schedule
+    steps.tf_schedule = lambda model, step: np.float32(0.0)
+    try:
+        yield
+    finally:
+        steps.tf_schedule = schedule
 
 
 def adam_moments(state) -> Dict[str, torch.Tensor]:

@@ -35,8 +35,9 @@ class Context:
         return self.batch, d["n_counties"], d["horizon"], d["image_size"]
 
     def flops_per_unit(self) -> float:
-        """Operations of one forward (or train step: forward and backward)
-        at the cell's shapes, counted over the plain reference."""
+        """Operations of one forward (or train step: forward and backward,
+        and with scheduled sampling the teacher's eval-mode pass over the
+        targets) at the cell's shapes, counted over the plain reference."""
         if self._flops is None:
             b, n, t, s = self.shape
             meta = lambda *shape: torch.empty(shape, device="meta")
@@ -48,7 +49,13 @@ class Context:
                 if not self.train:
                     return ref.forward(var, x, feats, sup, self.model)
                 leaves = [v.requires_grad_() for v in _leaves(var["params"])]
-                y = ref.forward(var, x, feats, sup, self.model, train=True, drop=lambda v: v)
+                teacher = None
+                if ref.teacher(self.model) is not None:  # the step's eval-mode teacher pass
+                    with torch.no_grad():
+                        latent = ref.teacher_latent(var, x, self.model)
+                    teacher = {"latent": latent, "heads": [False] * t}
+                y = ref.forward(var, x, feats, sup, self.model, train=True, drop=lambda v: v,
+                                teacher=teacher)
                 y.square().mean().backward()
                 return leaves
 

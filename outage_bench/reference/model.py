@@ -1,6 +1,6 @@
 """The plain reference of the fusion model: U-Net contraction -> bottleneck
-encoder (+ Date2Vec) -> st-GNN (Graph WaveNet, fused kernel_size-1 path, or
-DCRNN) -> bottleneck decoder -> U-Net expansion, over [B, N, T, H, W, C].
+encoder (+ Date2Vec) -> st-GNN -> bottleneck decoder -> U-Net expansion,
+over [B, N, T, H, W, C].
 
 Plain PyTorch in float32, written from the model's equations: it imports
 nothing of the program under test and works everything out again from the
@@ -12,16 +12,46 @@ reference, `bf16` for the rounding yardstick, `fp8` for the
 lower-precision control.
 
 Train mode normalizes each BatchNorm group (a (sample, county) pair in the
-U-Net, a sample in Graph WaveNet) by its own statistics and draws dropout
-from `drop`, a callable that gets each dropout site's activation in the
-program's order and returns it masked.
+U-Net) by its own statistics and draws dropout from `drop`, a callable
+that gets each dropout site's activation in the program's order and
+returns it masked.
+
+The st-GNN is a family of its own, one file each: st_gnn/<name>.py, found
+by the configuration's "st_gnn" (`family`). A family file imports this
+module for the shared parts and exposes:
+
+  forward(z, params, stats, supports, cfg, train, drop, q, teacher)
+      z [B, N, T, F + E] (bottleneck features and Date2Vec) ->
+      [B, N, T, F]; params / stats the "st_gnn" subtrees (stats {} where
+      the family keeps none); teacher None, or in a train step with
+      scheduled sampling {"latent": [B, N, T, F] targets, "heads": one
+      coin a step}
+  layout(model, n, n_static)
+      (path, shape, kind) of its leaves under params/st_gnn and
+      batch_stats/st_gnn, in the program's order (`dense_leaves`,
+      `bn_leaves`; kinds as in inputs.variables_layout)
+  support_kind(model)
+      the static supports it reads: "identity", "transition" or
+      "doubletransition"
+  dropout_sites(model, b, n, t)
+      (shape, rate) of its dropout draws of a train forward, in order
+  teacher(model)
+      (p0, tau) of its scheduled sampling (the program's teacher-forcing
+      probability and decay steps), or None where it has none or it is off
+  MIX_KEYS
+      the dotted keys of the model group that a traffic mix may set (its
+      training knobs, such as a scheduled-sampling rate); () where none
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import importlib.util
 import math
-from typing import Callable, Dict, Optional
+import os
+import re
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -74,21 +104,26 @@ def conv3x3(x, kernel, q: Quant):
     return y.permute(0, 2, 3, 1).reshape(*lead, h, w, -1)
 
 
-def batch_norm(x, p, s, train: bool, group_axes: int):
+def batch_norm(x, p, s, train: bool, group_axes: int, record: Optional[List] = None):
     """Train: each group of the leading `group_axes` axes by its own biased
-    statistics over the rest; eval: the running statistics."""
+    statistics over the rest; eval: the running statistics. In train mode
+    `record` (a list) gets (s, the groups' means, biased variances, count)."""
     if not train:
         return (x - s["mean"]) / torch.sqrt(s["var"] + EPS) * p["scale"] + p["bias"]
     g = math.prod(x.shape[:group_axes])
     xg = x.reshape(g, -1, x.shape[-1])
     mean = xg.mean(1, keepdim=True)
     var = (xg - mean).square().mean(1, keepdim=True)
+    if record is not None:
+        record.append((s, mean.detach(), var.detach(), xg.shape[1]))
     return ((xg - mean) / torch.sqrt(var + EPS) * p["scale"] + p["bias"]).reshape(x.shape)
 
 
-def double_conv(x, p, s, train: bool, q: Quant):
-    x = torch.relu(batch_norm(conv3x3(x, p["conv1"]["kernel"], q), p["bn1"], s["bn1"], train, 2))
-    return torch.relu(batch_norm(conv3x3(x, p["conv2"]["kernel"], q), p["bn2"], s["bn2"], train, 2))
+def double_conv(x, p, s, train: bool, q: Quant, record: Optional[List] = None):
+    x = torch.relu(batch_norm(conv3x3(x, p["conv1"]["kernel"], q), p["bn1"], s["bn1"], train, 2,
+                              record))
+    return torch.relu(batch_norm(conv3x3(x, p["conv2"]["kernel"], q), p["bn2"], s["bn2"], train,
+                                 2, record))
 
 
 def max_pool(x):
@@ -113,117 +148,118 @@ def date2vec(date_feats, p):
                       torch.sin(x @ p["fc2"]["kernel"] + p["fc2"]["bias"])], -1)
 
 
-def adaptive_support(st):
-    return torch.softmax(torch.relu(st["nodevec1"] @ st["nodevec2"]), dim=1)
-
-
 def diffuse(x, a, q: Quant):
     """out[b, w, ..., c] = sum_v a[v, w] x[b, v, ..., c] over the node axis 1."""
     return torch.einsum("bv...,vw->bw...", q(x), q(a))
 
 
-def graph_wavenet(z, st, sbs, supports, cfg, train: bool, drop, q: Quant):
-    """The fused Graph WaveNet (kernel_size 1): per layer the gated unit
-    g = tanh(x Wf + bf) * sigmoid(x Wg + bg), skip s = g Ws + bs, diffusion
-    h = [g, A g, A^2 g, ...] Wc + bc over every support, dropout, residual,
-    BatchNorm per sample over (N, T); then relu(skip) -> end_conv_1 -> relu
-    -> end_conv_2."""
-    g = cfg["gwnet"]
-    if g["kernel_size"] != 1 or not g["gcn_bool"] or g.get("reference_view_quirk"):
-        raise NotImplementedError("the reference covers the fused Graph WaveNet path")
-    sup = [a for a in supports]
-    if g["addaptadj"]:
-        sup.append(adaptive_support(st))
-    x = dense(z, st["start_conv"], q)
-    skip = None
-    for i in range(g["blocks"] * g["layers"]):
-        w = lambda name: {"kernel": st[f"{name}{i}_kernel"], "bias": st[f"{name}{i}_bias"]}
-        gate = torch.tanh(dense(x, w("filter_conv"), q)) * torch.sigmoid(dense(x, w("gate_conv"), q))
-        s = dense(gate, w("skip_conv"), q)
-        terms = [gate]
-        for a in sup:
-            t = gate
-            for _ in range(g["order"]):
-                t = diffuse(t, a, q)
-                terms.append(t)
-        h = dense(torch.cat(terms, -1), w("gconv"), q)
-        if train:
-            h = drop(h)
-        skip = s if skip is None else s + skip
-        x = batch_norm(h + x, st[f"bn{i}"], sbs[f"bn{i}"], train, 1)
-    out = dense(torch.relu(skip), st["end_conv_1"], q, act=True)
-    return dense(out, st["end_conv_2"], q)
+def running_stats(record: List, momentum: float = 0.1) -> None:
+    """The BatchNorm running statistics after a train pass, in place, from
+    its `record` in order: for each group k, r <- (1 - m) r + m s_k, of the
+    group's mean and unbiased variance (torch's EMA, one update a group,
+    groups in C order), in closed form: r <- (1 - m)^G r + sum_k
+    m (1 - m)^(G - 1 - k) s_k."""
+    for s, mean, var, m in record:
+        g, c = mean.shape[0], mean.shape[-1]
+        w = momentum * (1 - momentum) ** torch.arange(g - 1, -1, -1, dtype=torch.float32,
+                                                      device=mean.device)
+        decay = (1 - momentum) ** g
+        s["mean"] = decay * s["mean"] + w @ mean.reshape(g, c)
+        s["var"] = decay * s["var"] + w @ (var * (m / (m - 1))).reshape(g, c)
 
 
-def dcrnn(z, st, supports, cfg, horizon: int, q: Quant):
-    """Encoder-decoder of diffusion-convolutional GRU cells. A diffusion
-    convolution projects [x, T_1(A)x, T_2(A)x, ...] per support, with
-    T_1 = A x and T_k = 2 A T_{k-1} - T_{k-2}; the decoder starts from a
-    zero GO symbol and feeds back its own projected output."""
-    d = cfg["dcrnn"]
-    k, units, layers = d["max_diffusion_step"], d["rnn_units"], d["num_rnn_layers"]
+# --- the variables tree's leaves ------------------------------------------------
 
-    def dconv(x, p):
-        terms = [x]
-        for a in supports:
-            x0, x1 = x, diffuse(x, a, q)
-            terms.append(x1)
-            for _ in range(2, k + 1):
-                x0, x1 = x1, 2.0 * diffuse(x1, a, q) - x0
-                terms.append(x1)
-        return dense(torch.cat(terms, -1), p["proj"], q)
+def dense_leaves(path: str, cin: int, cout: int, kind: str = "w") -> List[tuple]:
+    """A Dense layer's kernel [cin, cout] and zero bias under params/path."""
+    return [(f"params/{path}/kernel", (cin, cout), f"{kind}:{cin}"),
+            (f"params/{path}/bias", (cout,), "zero")]
 
-    def cell(p, h, x):
-        ru = torch.sigmoid(dconv(torch.cat([x, h], -1), p["gates"]))
-        r, u = ru[..., :units], ru[..., units:]
-        c = torch.tanh(dconv(torch.cat([x, r * h], -1), p["candidate"]))
-        return u * h + (1.0 - u) * c
 
-    b, n, t, _ = z.shape
-    h = [z.new_zeros(b, n, units) for _ in range(layers)]
-    for ti in range(t):
-        inp = z[:, :, ti]
-        for l in range(layers):
-            h[l] = inp = cell(st["encoder"][f"cell{l}"], h[l], inp)
-    prev = z.new_zeros(b, n, st["decoder"]["proj"]["kernel"].shape[1])
-    outs = []
-    for _ in range(horizon):
-        inp = prev
-        for l in range(layers):
-            h[l] = inp = cell(st["decoder"][f"cell{l}"], h[l], inp)
-        prev = dense(inp, st["decoder"]["proj"], q)
-        outs.append(prev)
-    return torch.stack(outs, dim=2)
+def bn_leaves(path: str, c: int) -> List[tuple]:
+    """A BatchNorm's scale and shift under params/path, its running
+    statistics under batch_stats/path."""
+    return ([(f"params/{path}/{leaf}", (c,), f"bn_{leaf}") for leaf in ("scale", "bias")]
+            + [(f"batch_stats/{path}/{leaf}", (c,), f"bn_{leaf}") for leaf in ("mean", "var")])
+
+
+# --- the st-GNN families ----------------------------------------------------------
+
+FAMILIES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "st_gnn")
+
+
+def family(cfg: Dict):
+    """The st-GNN family module of the model group `cfg`:
+    FAMILIES/<cfg["st_gnn"]>.py, loaded by path."""
+    name = cfg["st_gnn"]
+    if not re.fullmatch(r"[A-Za-z0-9_]+", name):
+        raise ValueError(f"st_gnn {name!r} is not a family name (letters, digits, _)")
+    path = os.path.join(FAMILIES, f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"st_gnn {name!r}: no family file {path}")
+    return _load(path)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(path: str):
+    name = "outage_bench_st_gnn_" + re.sub(r"\W", "_", os.path.splitext(path)[0])
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def teacher(cfg: Dict):
+    """(p0, tau) of the st-GNN's scheduled sampling, or None."""
+    return family(cfg).teacher(cfg)
+
+
+# --- the model ----------------------------------------------------------------------
+
+def contraction(x, cp, cs, depth: int, train: bool, q: Quant, record: Optional[List] = None):
+    """The U-Net contraction: (the bottleneck, the skips)."""
+    y = double_conv(x, cp["inc"], cs["inc"], train, q, record)
+    skips = [y]
+    for i in range(1, depth + 1):
+        y = double_conv(max_pool(y), cp[f"down{i}"]["conv"], cs[f"down{i}"]["conv"], train, q,
+                        record)
+        if i < depth:
+            skips.append(y)
+    return y, skips
+
+
+def teacher_latent(variables: Dict, y, cfg: Dict, quant: Quant = ident):
+    """The latent targets of scheduled sampling: the future frames y
+    [B, N, horizon, H, W, Cin] through the shared contraction and bottleneck
+    encoder in eval mode (running BatchNorm statistics, no dropout) ->
+    [B, N, horizon, F]."""
+    p, bs = variables["params"], variables["batch_stats"]
+    b, n, t = y.shape[:3]
+    z, _ = contraction(y.float(), p["contraction"], bs["contraction"], cfg["depth"], False, quant)
+    zf = dense(z.reshape(b, n, t, -1), p["encoder"]["fc1"], quant, act=True)
+    return dense(zf, p["encoder"]["fc2"], quant, act=True)
 
 
 def forward(variables: Dict, x, date_feats, supports, cfg: Dict, train: bool = False,
-            drop: Optional[Callable] = None, quant: Quant = ident):
+            drop: Optional[Callable] = None, quant: Quant = ident, teacher: Optional[Dict] = None):
     """x [B, N, T, H, W, Cin] normalized frames, date_feats [B, T, 6] raw
     (0, 0, 0, y, m, d), supports [S, N, N] static supports -> the forecast
     [B, N, horizon, H, W, Cout], all float32. cfg is the configuration's
-    "model" group."""
+    "model" group; teacher (train mode only) goes to the st-GNN."""
     p, bs = variables["params"], variables["batch_stats"]
     q = quant
     depth = cfg["depth"]
     b, n, t = x.shape[:3]
     x = x.float()
-    cp, cs = p["contraction"], bs["contraction"]
-    y = double_conv(x, cp["inc"], cs["inc"], train, q)
-    skips = [y]
-    for i in range(1, depth + 1):
-        y = double_conv(max_pool(y), cp[f"down{i}"]["conv"], cs[f"down{i}"]["conv"], train, q)
-        if i < depth:
-            skips.append(y)
+    y, skips = contraction(x, p["contraction"], bs["contraction"], depth, train, q)
     zf = dense(y.reshape(b, n, t, -1), p["encoder"]["fc1"], q, act=True)
     if train:
         zf = drop(zf)
     zf = dense(zf, p["encoder"]["fc2"], q, act=True)
     te = date2vec(date_feats, p["date2vec"])[:, None].expand(b, n, t, -1)
     z = torch.cat([zf, te], -1)
-    if cfg["st_gnn"] == "dcrnn":
-        z = dcrnn(z, p["st_gnn"], supports, cfg, t, q)
-    else:
-        z = graph_wavenet(z, p["st_gnn"], bs["st_gnn"], supports, cfg, train, drop, q)
+    z = family(cfg).forward(z, p["st_gnn"], bs.get("st_gnn", {}), supports, cfg, train, drop, q,
+                            teacher)
     dd = dense(z, p["decoder"]["fc1"], q, act=True)
     if train:
         dd = drop(dd)

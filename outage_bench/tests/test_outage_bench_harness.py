@@ -21,7 +21,8 @@ from outage_bench.tests.tiny import tiny_cell
 from outage_bench.trace import Trace, gaps, union_length
 
 SEED = 2**31 + 977  # past 32 signed bits: seeds may be that large
-CELLS = ["dcrnn.forecast_b1", "gwnet.train_b16", "gwnet.forecast_b1", "dcrnn.sweep_b16"]
+CELLS = ["dcrnn.forecast_b1", "gwnet.train_b16", "gwnet.forecast_b1", "dcrnn.sweep_b16",
+         "dcrnn.train_b16_tf"]
 
 
 def test_double_conv_counts_by_hand():
@@ -130,6 +131,103 @@ def test_a_new_file_in_each_folder_is_found(tmp_path):
     assert [m["name"] for m in cell.per_layer] == ["new_metric.x"]
     assert spec.reader("new_metric.x", str(here))(None) == 42.0
     assert {m["name"] for m in cell.end_to_end} == {"setup_s"}
+
+
+STANDIN = '''"""A stand-in st-GNN family: a two-layer perceptron per position, no graph."""
+from outage_bench.reference import model as ref
+
+MIX_KEYS = ()
+
+
+def support_kind(model):
+    return "identity"
+
+
+def teacher(model):
+    return None
+
+
+def dropout_sites(model, b, n, t):
+    return [((b, n, t, model["standin"]["width"]), 0.5)]
+
+
+def layout(model, n, n_static):
+    w, f = model["standin"]["width"], model["feature_vector_size"]
+    return (ref.dense_leaves("st_gnn/hidden", f + model["time_embed_size"], w)
+            + ref.dense_leaves("st_gnn/out", w, f))
+
+
+def forward(z, params, stats, supports, cfg, train, drop, q, teacher=None):
+    h = ref.dense(z, params["hidden"], q, act=True)
+    if train:
+        h = drop(h)
+    return ref.dense(h, params["out"], q)
+'''
+
+
+def test_a_new_st_gnn_family_is_added_by_files_alone(tmp_path, monkeypatch):
+    """A family file in a directory of its own is loaded by the
+    configuration's st_gnn, laid out, given its supports and dropout sites,
+    and run through the reference's forward, eval and train."""
+    from outage_bench import check
+    from outage_bench.reference import model as ref
+
+    (tmp_path / "standin.py").write_text(STANDIN)
+    monkeypatch.setattr(ref, "FAMILIES", str(tmp_path))
+    m = dict(tiny_cell("gwnet.forecast_b1").config["model"], st_gnn="standin",
+             standin={"width": 5})
+    b, n, t, s = 2, 4, 3, 16
+    sup = inputs.static_supports(inputs.support_kind(m), n)
+    layout = inputs.variables_layout(m, n, s, sup.shape[0])
+    assert [p for p, _, _ in layout if "/st_gnn/" in p] == [
+        "params/st_gnn/hidden/kernel", "params/st_gnn/hidden/bias",
+        "params/st_gnn/out/kernel", "params/st_gnn/out/bias"]
+    var = inputs.make_variables(m, n, s, sup.shape[0], SEED, "cpu")
+    g = torch.Generator().manual_seed(1)
+    x, feats = torch.randn((b, n, t, s, s, 1), generator=g), torch.zeros(b, t, 6)
+    sites = check.dropout_sites(m, b, n, t, s)
+    assert [shape for shape, _ in sites][1] == (b, n, t, 5)
+    masks = iter(check.dropout_masks(3, 0, sites, "cpu"))
+    drop = lambda a: torch.where(next(masks)[0], a / 0.5, torch.zeros(()))
+    sup = torch.from_numpy(sup)
+    for train in (False, True):
+        y = ref.forward(var, x, feats, sup, m, train=train, drop=drop)
+        assert y.shape == (b, n, t, s, s, 1) and torch.isfinite(y).all()
+    assert next(masks, None) is None  # the encoder's, the family's, the decoder's
+
+
+def test_an_unknown_st_gnn_fails_at_set_up_naming_the_file():
+    from outage_bench.drivers import DRIVERS
+
+    cell = tiny_cell("gwnet.forecast_b1")
+    cell.config["model"]["st_gnn"] = "nosuch"
+    drv = DRIVERS["closed_loop"](cell, SEED, "cpu")
+    with pytest.raises(FileNotFoundError, match=r"st_gnn/nosuch\.py"):
+        drv.setup()
+
+
+def test_a_mix_sets_only_its_familys_training_knobs(tmp_path):
+    tf, plain = spec.load_cell("dcrnn.train_b16_tf"), spec.load_cell("dcrnn.forecast_b1")
+    assert tf.traffic["model"] == {"dcrnn": {"teacher_forcing": 1.0, "tf_decay_steps": 2000}}
+    assert tf.config["model"]["dcrnn"] == dict(plain.config["model"]["dcrnn"], teacher_forcing=1.0,
+                                               tf_decay_steps=2000)
+    assert {k: v for k, v in tf.config.items() if k != "model"} == {
+        k: v for k, v in plain.config.items() if k != "model"}
+    assert spec.load_cell("gwnet.train_b16").config == spec.load_cell("gwnet.forecast_b1").config
+    here = tmp_path / "outage_bench"
+    for sub in ("configs", "traffic", "limits"):
+        shutil.copytree(os.path.join(spec.HERE, sub), here / sub)
+    bench = json.load(open(os.path.join(spec.ROOT, "BENCHMARK.json")))
+    for c in bench["configs"]:
+        c["file"] = str(tmp_path / c["file"])
+    json.dump(bench, open(tmp_path / "BENCHMARK.json", "w"))
+    base = json.load(open(here / "traffic" / "train_b16_tf.json"))
+    # a key the configuration lacks, a width, a top-level key, another family's knob
+    for group in ({"dcrnn": {"no_such_knob": 1}}, {"dcrnn": {"rnn_units": 32}},
+                  {"feature_vector_size": 128}, {"gwnet": {"dropout": 0.1}}):
+        json.dump(dict(base, model=group), open(here / "traffic" / "train_b16_tf.json", "w"))
+        with pytest.raises(KeyError, match=rf"model\.{spec._dotted(group)[0][0]}"):
+            spec.load_cell("dcrnn.train_b16_tf", str(tmp_path / "BENCHMARK.json"), str(here))
 
 
 @pytest.mark.parametrize("trace", [0, 1])

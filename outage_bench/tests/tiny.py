@@ -18,7 +18,8 @@ TINY_DATA = {"n_counties": 4, "image_size": 16, "horizon": 3, "dataset_range": 6
 def _merge(dst: dict, src: dict) -> None:
     for k, v in src.items():
         if isinstance(v, dict):
-            _merge(dst[k], v)
+            if k in dst:  # a group the configuration has
+                _merge(dst[k], v)
         else:
             dst[k] = v
 

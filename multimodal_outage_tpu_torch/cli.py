@@ -4,7 +4,7 @@
              package's, so either package reads the other's)
   stats    — print the store's normalization {"mean", "std"}
   serve    — sweep a held-out hurricane through the serving engine (Graph
-             WaveNet, or DCRNN with --st_gnn dcrnn) with a checkpoint's,
+             WaveNet, or DCRNN or GMAN with --st_gnn) with a checkpoint's,
              an .npz's or seeded weights, and print the metrics JSON (and
              per-request latency with --latency_stats)
   train    — train the fusion model (leave one hurricane out), write
@@ -57,6 +57,8 @@ import json
 import os
 import sys
 from typing import Any, Dict, List, Optional
+
+from multimodal_outage_tpu_torch.core.config import ST_GNNS
 
 from multimodal_outage_tpu_torch.core.registry import HURRICANES
 
@@ -218,8 +220,9 @@ def _model_flags(p: argparse.ArgumentParser) -> None:
     reads the ones its work uses (only train's steps read the memory
     flags, and serve's engine has its own pool, BatchNorm folding and
     self-feeding decoder, as the JAX engine has)."""
-    p.add_argument("--st_gnn", type=str, default="gwnet", choices=("gwnet", "dcrnn"),
-                   help="spatio-temporal GNN: Graph WaveNet or DCRNN")
+    p.add_argument("--st_gnn", type=str, default="gwnet", choices=ST_GNNS,
+                   help="spatio-temporal GNN: Graph WaveNet, DCRNN, or GMAN (graph "
+                   "multi-attention; the port's own, GMANConfig's widths)")
     p.add_argument("--horizon", type=int, default=7)
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--data_dir", type=str, default="data/synthetic")
@@ -303,11 +306,13 @@ def _config(args: argparse.Namespace):
     """The Config of the parsed flags of train, evaluate, serve or
     import-torch, field by field as the JAX CLI's _build_config (its
     cli.py:161-230) maps them; a flag a command lacks takes the field's
-    default."""
+    default. The port's own gman group (GMAN has no JAX counterpart) takes
+    its window, 2·horizon steps, from --horizon."""
     from multimodal_outage_tpu_torch.core.config import (
         Config,
         DataConfig,
         DCRNNConfig,
+        GMANConfig,
         GWNetConfig,
         MeshConfig,
         ModelConfig,
@@ -339,6 +344,7 @@ def _config(args: argparse.Namespace):
             gwnet=GWNetConfig(**gwnet),
             dcrnn=DCRNNConfig(teacher_forcing=args.teacher_forcing,
                               tf_decay_steps=args.tf_decay_steps),
+            gman=GMANConfig(steps=2 * args.horizon),
         ),
         train=TrainConfig(
             epochs=getattr(args, "epochs", 5), batch_size=args.batch_size,

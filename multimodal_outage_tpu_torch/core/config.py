@@ -1,5 +1,6 @@
 """Typed configuration: the port's own copy of the JAX package's config
-dataclasses (same fields, same defaults)."""
+dataclasses (same fields, same defaults), and the port's own GMANConfig,
+the `gman` group of ModelConfig (an st-GNN the JAX package lacks)."""
 
 from __future__ import annotations
 
@@ -68,6 +69,30 @@ class DCRNNConfig:
 
 
 @dataclass(frozen=True)
+class GMANConfig:
+    """GMAN (Zheng et al., AAAI 2020, arXiv:1911.08415): K heads of d
+    channels (D = K·d) and L ST-Attention blocks in the encoder and L in
+    the decoder, the paper's reported best setting; steps = P + Q, the
+    window's input and output days that the temporal embedding one-hot
+    encodes (2·horizon: the fusion model's windows are horizon days in
+    and horizon out). It is a field, though the horizon gives it, so that
+    a configuration's model group alone sizes the variables tree, as
+    outage_bench's reference lays the tree out without a horizon."""
+
+    num_heads: int = 8
+    head_dim: int = 8
+    num_blocks: int = 3
+    steps: int = 14
+
+    @property
+    def width(self) -> int:
+        return self.num_heads * self.head_dim
+
+
+ST_GNNS = ("gwnet", "dcrnn", "gman")  # ModelConfig.st_gnn's families
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     st_gnn: str = "gwnet"
     input_channels: int = 1
@@ -82,6 +107,7 @@ class ModelConfig:
     d2v_bundle: Optional[str] = None
     gwnet: GWNetConfig = field(default_factory=GWNetConfig)
     dcrnn: DCRNNConfig = field(default_factory=DCRNNConfig)
+    gman: GMANConfig = field(default_factory=GMANConfig)
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: bool = False

@@ -71,9 +71,13 @@ DCRNN_ADJTYPES = {
 
 def model_adjtype(model_cfg) -> str:
     """The adjtype a ModelConfig's st-GNN diffuses over: DCRNN's by its
-    filter_type, Graph WaveNet's by gwnet.adjtype."""
+    filter_type, Graph WaveNet's by gwnet.adjtype; GMAN reads no static
+    support (its graph is in the spatial embedding), so it is handed the
+    one identity matrix."""
     if model_cfg.st_gnn == "dcrnn":
         return DCRNN_ADJTYPES[model_cfg.dcrnn.filter_type]
+    if model_cfg.st_gnn == "gman":
+        return "identity"
     return model_cfg.gwnet.adjtype
 
 

@@ -1,6 +1,6 @@
 """ModifiedUNet, the trainable fusion model (JAX models/fusion.py): U-Net
-contraction → bottleneck encoder → (‖ Date2Vec) → st-GNN (Graph WaveNet or
-DCRNN) → bottleneck decoder → U-Net expansion, over [B, N, T, H, W, C].
+contraction → bottleneck encoder → (‖ Date2Vec) → st-GNN (Graph WaveNet,
+DCRNN or GMAN) → bottleneck decoder → U-Net expansion, over [B, N, T, H, W, C].
 
 Parameters sit under the JAX variable tree's key paths and in its
 layouts (weights.module_variables / load_variables), so gradients,
@@ -20,7 +20,9 @@ apply; the decoder feeds them with the step's probability.
 
 sample_weight [B] (the mesh step's 'w' row) reaches every
 GroupedBatchNorm, masking the running-stat update of pad rows (JAX
-models/fusion.py:91-188); DCRNN has none. Under a mesh (core/mesh.py)
+models/fusion.py:91-188), and GMAN's BatchNorms, which also leave pad
+rows out of their batch statistics; DCRNN has none. GMAN, the port's own
+st-GNN (models/gman.py), has no JAX counterpart. Under a mesh (core/mesh.py)
 the U-Net, the bottleneck, Date2Vec and the kernel_size-1 Graph WaveNet
 run on this rank's slice of T; an st-GNN that mixes T gets it gathered
 (_st_gnn).
@@ -33,11 +35,12 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from multimodal_outage_tpu_torch.core.config import ModelConfig
+from multimodal_outage_tpu_torch.core.config import ST_GNNS, ModelConfig
 from multimodal_outage_tpu_torch.core.mesh import TIME_AXIS, active_mesh, full_time, time_sharded
 from multimodal_outage_tpu_torch.data.adjacency import model_adjtype, n_static_supports
 from multimodal_outage_tpu_torch.models.date2vec import Date2Vec
 from multimodal_outage_tpu_torch.models.dcrnn import DCRNN
+from multimodal_outage_tpu_torch.models.gman import GMAN
 from multimodal_outage_tpu_torch.models.gwnet import GraphWaveNet
 from multimodal_outage_tpu_torch.models.unet import (
     BottleneckDecoder,
@@ -47,6 +50,7 @@ from multimodal_outage_tpu_torch.models.unet import (
 )
 
 
+
 class ModifiedUNet(nn.Module):
     """pool_reference=True runs the pallas pool's plain versions instead of
     its kernels, on any device (the step a kernel step is held against)."""
@@ -54,8 +58,8 @@ class ModifiedUNet(nn.Module):
     def __init__(self, cfg: ModelConfig, horizon: int, n_counties: int,
                  image_size: int = 128, pool_reference: bool = False):
         super().__init__()
-        if cfg.st_gnn not in ("gwnet", "dcrnn"):
-            raise ValueError(f"unknown st_gnn {cfg.st_gnn!r}; pick 'gwnet' or 'dcrnn'")
+        if cfg.st_gnn not in ST_GNNS:
+            raise ValueError(f"unknown st_gnn {cfg.st_gnn!r}; pick one of {ST_GNNS}")
         self.cfg, self.horizon = cfg, horizon
         self.dtype = dtype = getattr(torch, cfg.compute_dtype)
         sp = cfg.bn_single_pass
@@ -77,6 +81,9 @@ class ModifiedUNet(nn.Module):
                 cfg.st_gnn_in_dim, cfg.feature_vector_size, horizon, d.rnn_units,
                 d.num_rnn_layers, d.max_diffusion_step, n_static, d.teacher_forcing, dtype,
             )
+        elif cfg.st_gnn == "gman":
+            self.st_gnn = GMAN(cfg.st_gnn_in_dim, cfg.feature_vector_size, n_counties, horizon,
+                               cfg.gman, dtype)
         else:
             self.st_gnn = GraphWaveNet(cfg, n_counties, n_static, dtype)
         self.decoder = BottleneckDecoder(
@@ -116,7 +123,7 @@ class ModifiedUNet(nn.Module):
         z = torch.cat([z, te], dim=-1)  # [B, N, T, 320]
         if supports is not None:
             supports = torch.as_tensor(supports, device=x.device)
-        if self.cfg.st_gnn == "gwnet":
+        if self.cfg.st_gnn != "dcrnn":
             teacher["sample_weight"] = sw  # DCRNN has no BatchNorm (JAX dcrnn.py:194-197)
         z = self._st_gnn(z, supports, train, generator, teacher)
         d = self.decoder(z, train, generator)
@@ -124,8 +131,8 @@ class ModifiedUNet(nn.Module):
 
     def _st_gnn(self, z, supports, train, generator, kw) -> torch.Tensor:
         """The st-GNN. Under a mesh whose time axis splits T, a module that
-        mixes T (DCRNN, the Graph WaveNet TCN of kernel_size > 1, the
-        reference_view_quirk reinterpret) gets the whole window: T (and
+        mixes T (DCRNN, GMAN, the Graph WaveNet TCN of kernel_size > 1,
+        the reference_view_quirk reinterpret) gets the whole window: T (and
         the teacher's latent targets) all-gathered over the time group,
         computed alike on every time rank, this rank's slice kept
         (parallel/collectives.py gather_time)."""

@@ -78,6 +78,10 @@ DCRNN_ERROR = (
     "so no reference DCRNN checkpoints exist to import — only gwnet fusion "
     "checkpoints convert"
 )
+GMAN_ERROR = (
+    "no reference mapping for a GMAN st-GNN: the reference has no GMAN (it is "
+    "the port's own st-GNN), so no reference GMAN checkpoints exist to import"
+)
 
 
 def _to_np(v) -> np.ndarray:
@@ -126,6 +130,8 @@ def build_rules(variables: Dict[str, Any]) -> List[Rule]:
     {"params", "batch_stats"} tree: every leaf but the date2vec subtree,
     which the reference keeps in a separate pickle."""
     st = variables.get("params", {}).get("st_gnn", {})
+    if "spatial_embedding" in st:
+        raise ValueError(GMAN_ERROR)
     if "encoder" in st or "decoder" in st:
         raise ValueError(DCRNN_ERROR)
     rules: List[Rule] = []

@@ -1,9 +1,9 @@
 """Serving engine: the eval-mode ModifiedUNet forward on the card.
 
 The counterpart of the JAX package's serving.py ServingModel, for
-st_gnn="gwnet" and st_gnn="dcrnn". At build it folds every U-Net
-BatchNorm into a per-channel affine (eps 1e-5), drops dropout and
-prepares the st-GNN's weights and supports, once. The forward:
+st_gnn="gwnet", "dcrnn" and "gman" (the port's own). At build it folds
+every U-Net BatchNorm into a per-channel affine (eps 1e-5), drops dropout
+and prepares the st-GNN's weights and supports, once. The forward:
 
   U-Net contraction   5 DoubleConvs (ops/double_conv.py; a width its kernel
                       does not take, kernel_takes, runs the plain version,
@@ -21,7 +21,10 @@ prepares the st-GNN's weights and supports, once. The forward:
                       (ops/gwnet_layer.py);
                       DCRNN: one kernel for the whole seq2seq
                       (ops/dcrnn_stack.py), or with dcrnn_stack=False the
-                      module in eval mode (models/dcrnn.py)
+                      module in eval mode (models/dcrnn.py);
+                      GMAN: models/gman.py FoldedGMAN, every BatchNorm
+                      folded, the spatio-temporal embedding computed once,
+                      the attentions through scaled_dot_product_attention
   bottleneck decoder  2 Dense + ReLU, float32
   U-Net expansion     4 × (ConvTranspose 2×2 → pad-to-match → concat skip →
                       DoubleConv), then the 1×1 head
@@ -58,7 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from multimodal_outage_tpu_torch.core import tracing
-from multimodal_outage_tpu_torch.core.config import DataConfig, ModelConfig
+from multimodal_outage_tpu_torch.core.config import ST_GNNS, DataConfig, ModelConfig
 from multimodal_outage_tpu_torch.core.device import resolve_device
 from multimodal_outage_tpu_torch.core.metrics import (
     MeanAggregator,
@@ -68,6 +71,7 @@ from multimodal_outage_tpu_torch.core.metrics import (
 from multimodal_outage_tpu_torch.core.registry import leave_one_out
 from multimodal_outage_tpu_torch.models import date2vec
 from multimodal_outage_tpu_torch.models.dcrnn import DCRNN
+from multimodal_outage_tpu_torch.models.gman import FoldedGMAN
 from multimodal_outage_tpu_torch.models.gwnet import GraphWaveNet
 from multimodal_outage_tpu_torch.ops import dcrnn_stack as dsm
 from multimodal_outage_tpu_torch.ops.double_conv import (
@@ -112,6 +116,17 @@ def gwnet_path(g, has_supports: bool, gwnet_stack: Optional[bool],
     return gwnet_stack
 
 
+def _n_nodes(cfg: ModelConfig, st, supports) -> int:
+    """The county count of a variables tree's st-GNN: GMAN's spatial
+    embedding's rows, else the supports' size, else (a Graph WaveNet
+    without static supports) the adaptive adjacency's node embedding's."""
+    if cfg.st_gnn == "gman":
+        return torch.as_tensor(st["spatial_embedding"]).shape[0]
+    if supports is not None:
+        return torch.as_tensor(supports).shape[-1]
+    return torch.as_tensor(st["nodevec1"]).shape[0]
+
+
 class ServingModel:
     """Eval forward built once from a variables tree (weights.py).
 
@@ -134,10 +149,9 @@ class ServingModel:
         dcrnn_stack: Optional[bool] = None,
         mesh=None,
     ):
-        if cfg.st_gnn not in ("gwnet", "dcrnn"):
+        if cfg.st_gnn not in ST_GNNS:
             raise NotImplementedError(
-                f"ServingModel serves st_gnn in ('gwnet', 'dcrnn') (got {cfg.st_gnn!r})"
-            )
+                f"ServingModel serves st_gnn in {ST_GNNS} (got {cfg.st_gnn!r})")
         self.mesh = mesh
         if mesh is not None:
             if gwnet_stack or dcrnn_stack or gwnet_pallas:
@@ -193,6 +207,8 @@ class ServingModel:
         sup = None if supports is None else f32(supports)
         if cfg.st_gnn == "dcrnn":
             self._st_gnn = self._dcrnn(p["st_gnn"], sup, dcrnn_stack)
+        elif cfg.st_gnn == "gman":
+            self._st_gnn = FoldedGMAN(p["st_gnn"], bs["st_gnn"], cfg.gman, horizon, dev, dtype)
         elif gwnet_stack:
             self._st_gnn = self._gwnet_stack(p["st_gnn"], bs["st_gnn"], sup)
         else:
@@ -222,8 +238,7 @@ class ServingModel:
         top = cfg.base_channels * 2**cfg.depth
         grid = int(round(math.sqrt(torch.as_tensor(p["decoder"]["fc2"]["kernel"]).shape[1]
                                    / top)))
-        n = (torch.as_tensor(supports).shape[-1] if supports is not None
-             else torch.as_tensor(p["st_gnn"]["nodevec1"]).shape[0])
+        n = _n_nodes(cfg, p["st_gnn"], supports)
         self.cfg, self.horizon, self.reference = cfg, horizon, False
         self.gwnet_stack = False
         self.device = mesh.device

@@ -18,7 +18,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from multimodal_outage_tpu_torch.core.config import ModelConfig
+from multimodal_outage_tpu_torch.core.config import ST_GNNS, ModelConfig
 from multimodal_outage_tpu_torch.data.adjacency import model_adjtype, n_static_supports
 
 # Typical magnitudes of the raw [0,0,0,y,m,d] Date2Vec inputs; its encoder
@@ -190,6 +190,55 @@ def _gwnet_params(cfg: ModelConfig, n_nodes: int, n_static: int, rng, dense, bn)
     return st, st_stats
 
 
+def _gman_params(cfg: ModelConfig, n_nodes: int, rng, dense, bn):
+    """The GMAN (params, batch_stats) trees (models/gman.py), in the
+    module's order (its own leaf S first): every FC a kernel, a bias (none
+    for the gated fusion's xs) and a BatchNorm "bn"; the spatial embedding
+    S [N, D] is N(0, 1), like Graph WaveNet's node embeddings."""
+    w, fvs = cfg.gman.width, cfg.feature_vector_size
+    st: Tree = {}
+    stats: Tree = {}
+
+    def fc(p: Tree, s: Tree, name: str, cin: int, cout: int, bias: bool = True) -> None:
+        p[name] = dense(cin, cout)
+        if not bias:
+            del p[name]["bias"]
+        bn_p, bn_s = bn(cout)
+        p[name]["bn"], s[name] = bn_p, {"bn": bn_s}
+
+    def fc2(p: Tree, s: Tree, name: str, cin: int, cout: int) -> None:
+        p[name], s[name] = {}, {}
+        fc(p[name], s[name], "fc1", cin, w)
+        fc(p[name], s[name], "fc2", w, cout)
+
+    def attention(p: Tree, s: Tree, name: str, cin: int) -> None:
+        p[name], s[name] = {}, {}
+        for qkv in ("query", "key", "value"):
+            fc(p[name], s[name], qkv, cin, w)
+        fc2(p[name], s[name], "out", w, w)
+
+    def blocks(part: str) -> None:
+        st[part], stats[part] = {}, {}
+        for l in range(cfg.gman.num_blocks):
+            p, s = st[part][f"block{l}"], stats[part][f"block{l}"] = {}, {}
+            attention(p, s, "spatial", 2 * w)
+            attention(p, s, "temporal", 2 * w)
+            p["fusion"], s["fusion"] = {}, {}
+            fc(p["fusion"], s["fusion"], "xs", w, w, bias=False)
+            fc(p["fusion"], s["fusion"], "xt", w, w)
+            fc2(p["fusion"], s["fusion"], "out", w, w)
+
+    st["spatial_embedding"] = rng.standard_normal((n_nodes, w)).astype(np.float32)
+    fc2(st, stats, "input", cfg.st_gnn_in_dim, w)
+    fc2(st, stats, "se", w, w)
+    fc2(st, stats, "te", cfg.gman.steps, w)
+    blocks("encoder")
+    attention(st, stats, "transform", w)
+    blocks("decoder")
+    fc2(st, stats, "output", w, fvs)
+    return st, stats
+
+
 def init_date2vec(k: int, seed: int) -> Tree:
     """Random params of models/date2vec.py Date2VecAutoencoder (fc1..fc5)
     as float32 numpy arrays, drawn with numpy from `seed` after flax's
@@ -232,12 +281,14 @@ def init_variables(
     tensors, made with numpy from `seed`. Distributions follow flax's
     initializers (lecun_normal kernels, zero biases, unit BN scales, N(0, 1)
     node embeddings, DCRNN gate biases 1.0); the values are not flax's.
-    horizon changes no shape of either st-GNN. Every GWNetConfig branch
+    horizon changes no shape of any st-GNN (GMAN's temporal embedding is
+    sized by gman.steps). GMAN (_gman_params) has no JAX counterpart: its
+    tree is the port's module's. Every GWNetConfig branch
     is covered (_gwnet_params); the node embeddings are random, also where
     fit installs svd_aptinit's after."""
     del horizon
-    if cfg.st_gnn not in ("gwnet", "dcrnn"):
-        raise ValueError(f"unknown st_gnn {cfg.st_gnn!r}; pick 'gwnet' or 'dcrnn'")
+    if cfg.st_gnn not in ST_GNNS:
+        raise ValueError(f"unknown st_gnn {cfg.st_gnn!r}; pick one of {ST_GNNS}")
     rng = np.random.default_rng(seed)
     params: Tree = {}
     stats: Tree = {}
@@ -289,6 +340,8 @@ def init_variables(
     if cfg.st_gnn == "dcrnn":
         # no BatchNorm, so no batch_stats entry
         params["st_gnn"] = _dcrnn_params(cfg, n_static, dense)
+    elif cfg.st_gnn == "gman":
+        params["st_gnn"], stats["st_gnn"] = _gman_params(cfg, n_counties, rng, dense, bn)
     else:
         params["st_gnn"], stats["st_gnn"] = _gwnet_params(cfg, n_counties, n_static, rng, dense, bn)
 

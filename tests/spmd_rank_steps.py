@@ -12,7 +12,12 @@ import numpy as np
 import torch
 
 from multimodal_outage_tpu_torch import weights
-from multimodal_outage_tpu_torch.core.config import DCRNNConfig, GWNetConfig, ModelConfig
+from multimodal_outage_tpu_torch.core.config import (
+    DCRNNConfig,
+    GMANConfig,
+    GWNetConfig,
+    ModelConfig,
+)
 from multimodal_outage_tpu_torch.core.mesh import Mesh, MeshShape
 from multimodal_outage_tpu_torch.models.fusion import build_model
 from multimodal_outage_tpu_torch.parallel import sharding
@@ -137,6 +142,48 @@ def mesh_steps(mesh: Mesh, cases: List[Tuple], variables: Dict, batches: Dict, d
         ctx = backward_on_another_thread() if opt.get("backward_thread") else contextlib.nullcontext()
         with ctx:
             out[key] = mesh_step(m, cfg, variables[st], batches[bname], t, n, h, bsize)
+    return out if mesh.is_main else None
+
+
+# GMAN's mesh cases (tests/test_torch_port_gman.py): (T, N, H), a small
+# GMAN whose temporal embedding spans the 2·T steps of its window
+GMAN_DIMS = (2, 4, 16)
+
+
+def gman_config() -> ModelConfig:
+    t = GMAN_DIMS[0]
+    return ModelConfig(compute_dtype="float32", st_gnn="gman", encoder_dropout=0.0,
+                       base_channels=2, depth=2, feature_vector_size=16, time_embed_size=8,
+                       gman=GMANConfig(num_heads=2, head_dim=4, num_blocks=1, steps=2 * t))
+
+
+def gman_batch(b: int, seed: int = 0) -> Dict[str, np.ndarray]:
+    t, n, h = GMAN_DIMS
+    rng = np.random.default_rng(seed)
+    feats = np.tile(np.array([0, 0, 0, 2022, 9, 26], np.float32), (b, t, 1))
+    feats[..., 5] += np.arange(t, dtype=np.float32)
+    return {"x": rng.standard_normal((b, n, t, h, h, 1)).astype(np.float32),
+            "y": rng.standard_normal((b, n, t, h, h, 1)).astype(np.float32),
+            "date_feats": feats}
+
+
+def gman_mesh_cases(mesh: Mesh, variables: Dict, batches: Dict) -> Dict:
+    """On a world of two ranks: GMAN's train step on 2x1x1 (batch b3 padded
+    to 4, so a pad row meets the batch-wide BatchNorm) and on 1x1x2 (b4,
+    T split and gathered for GMAN), and the mesh serving engine's forward
+    of b4 on 1x1x2; rank 0 returns them."""
+    from multimodal_outage_tpu_torch.serving import ServingModel
+
+    t, n, h = GMAN_DIMS
+    cfg = gman_config()
+    time_mesh = Mesh(MeshShape(1, 1, 2), mesh.device)
+    out = {"step_2x1x1": mesh_step(mesh, cfg, variables, batches["b3"], t, n, h, 4),
+           "step_1x1x2": mesh_step(time_mesh, cfg, variables, batches["b4"], t, n, h, 4)}
+    serve = ServingModel(cfg, variables, supports_for("gman", n).numpy(), horizon=t,
+                         mesh=time_mesh)
+    b = batches["b4"]
+    out["serve_1x1x2"] = serve(torch.from_numpy(b["x"]),
+                               torch.from_numpy(b["date_feats"])).cpu().numpy()
     return out if mesh.is_main else None
 
 

@@ -61,7 +61,6 @@ from multimodal_outage_tpu_torch.core.config import (
     MeshConfig,
     ModelConfig,
     TrainConfig,
-    asdict,
 )
 from multimodal_outage_tpu_torch.core.oom import is_oom_error
 from multimodal_outage_tpu_torch.data.adjacency import model_supports
@@ -76,6 +75,7 @@ from multimodal_outage_tpu_torch.train.steps import (
     sampling_generator,
     step_generator,
 )
+from port_config import jax_fields
 
 B, N, T, H = 4, 4, 3, 32
 H_STORE = 16  # the tiny store of tests/conftest.py that fit reads
@@ -645,7 +645,7 @@ def test_memory_flags_map_onto_the_config_as_jax_build_config(argv):
     recorded --xla_vmem_limit_kib on train, evaluate and serve: the
     port's Config equals the JAX CLI's _build_config of the same namespace."""
     ns = cli._parser().parse_args(argv)
-    ours = json.dumps(asdict(cli._config(ns)), default=str, sort_keys=True)
+    ours = json.dumps(jax_fields(cli._config(ns)), default=str, sort_keys=True)
     theirs = json.dumps(dataclasses.asdict(jax_cli._build_config(ns)), default=str,
                         sort_keys=True)
     assert ours == theirs

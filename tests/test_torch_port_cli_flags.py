@@ -19,7 +19,7 @@ import torch
 from multimodal_outage_tpu import cli as jax_cli
 from multimodal_outage_tpu_torch import cli
 from multimodal_outage_tpu_torch.core import mesh as mesh_mod
-from multimodal_outage_tpu_torch.core.config import asdict
+from port_config import jax_fields
 
 COMMANDS = ("train", "evaluate", "serve", "import-torch", "bench", "download-missing")
 # the options a command needs to parse at all
@@ -123,7 +123,7 @@ def test_new_flags_map_onto_the_config_as_jax_build_config(argv):
     ours = cli._config(cli._parser().parse_args(argv))
     theirs = jax_cli._build_config(JAX[argv[0]].parse_args(argv[1:]))
     dump = lambda c: json.dumps(c, default=str, sort_keys=True)  # noqa: E731
-    assert dump(asdict(ours)) == dump(dataclasses.asdict(theirs))
+    assert dump(jax_fields(ours)) == dump(dataclasses.asdict(theirs))
     assert dataclasses.asdict(ours.mesh) == dataclasses.asdict(theirs.mesh)
 
 

@@ -61,6 +61,7 @@ from multimodal_outage_tpu_torch.ops.gwnet_layer import fused_gwnet_layer
 from multimodal_outage_tpu_torch.train import loop
 from multimodal_outage_tpu_torch.train.state import create_train_state
 from multimodal_outage_tpu_torch.train.steps import make_train_step
+from port_config import jax_fields
 
 B, N, T, D_IN, OUT = 2, 4, 3, 16, 12
 TOL = dict(atol=5e-5, rtol=1e-4)
@@ -409,7 +410,7 @@ NEW_FLAGS = ["--no_gcn", "--svd_aptinit", "--gwnet_kernel_size", "2"]
 ], ids=lambda a: a[0])
 def test_new_flags_map_onto_the_config_as_jax_build_config(argv):
     ns = cli._parser().parse_args(argv)
-    ours = json.dumps(dataclasses.asdict(cli._config(ns)), default=str, sort_keys=True)
+    ours = json.dumps(jax_fields(cli._config(ns)), default=str, sort_keys=True)
     theirs = json.dumps(dataclasses.asdict(jax_cli._build_config(ns)), default=str,
                         sort_keys=True)
     assert ours == theirs

@@ -40,7 +40,6 @@ from multimodal_outage_tpu_torch.core.config import (
     GWNetConfig,
     ModelConfig,
     TrainConfig,
-    asdict,
 )
 from multimodal_outage_tpu_torch.core.run_logging import RunLogger
 from multimodal_outage_tpu_torch.data.adjacency import (
@@ -56,6 +55,7 @@ from multimodal_outage_tpu_torch.train import date2vec_pretrain as d2v
 from multimodal_outage_tpu_torch.train import loop
 from multimodal_outage_tpu_torch.train.state import Adam, create_train_state
 from multimodal_outage_tpu_torch.train.steps import make_train_step
+from port_config import jax_fields
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -242,7 +242,7 @@ def test_flags_map_onto_the_config_as_jax_build_config(argv):
     parsed namespace, give the same Config field by field. serve's --seed
     seeds the weights, not TrainConfig.seed (the JAX serve has none)."""
     ns = cli._parser().parse_args(argv)
-    ours = json.dumps(asdict(cli._config(ns)), default=str, sort_keys=True)
+    ours = json.dumps(jax_fields(cli._config(ns)), default=str, sort_keys=True)
     theirs = json.dumps(dataclasses.asdict(jax_cli._build_config(ns)), default=str,
                         sort_keys=True)
     assert ours == theirs

@@ -69,6 +69,7 @@ from multimodal_outage_tpu_torch.serving import ServingModel
 from multimodal_outage_tpu_torch.train import loop
 from multimodal_outage_tpu_torch.train.state import create_train_state
 from multimodal_outage_tpu_torch.train.steps import make_predict_step, make_train_step
+from port_config import jax_fields
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -453,5 +454,5 @@ def test_d2v_bundle_raises_until_installed(tmp_path):
 
 def test_config_copies_match_jax_defaults():
     for ours, theirs in ((TrainConfig(), JaxTrainConfig()), (Config(), JaxConfig())):
-        assert json.dumps(dataclasses.asdict(ours), default=str, sort_keys=True) == \
+        assert json.dumps(jax_fields(ours), default=str, sort_keys=True) == \
             json.dumps(dataclasses.asdict(theirs), default=str, sort_keys=True)

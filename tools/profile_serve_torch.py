@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of one serving forward of the PyTorch port goes, on the
 card: full width (67 counties × 7 days × 128² frames, bf16, random
-weights from a seed), at each requested batch size, with Graph WaveNet
-or DCRNN as the st-GNN.
+weights from a seed), at each requested batch size, with Graph WaveNet,
+DCRNN or GMAN as the st-GNN.
 
-    python3 tools/profile_serve_torch.py [--st_gnn gwnet|dcrnn] [--batch 1 16]
+    python3 tools/profile_serve_torch.py [--st_gnn gwnet|dcrnn|gman] [--batch 1 16]
         [--repeats 5] [--out FILE] [--gwnet_kernel_size K] [--no_gcn]
 
 --gwnet_kernel_size > 1 or --no_gcn profile a non-fused Graph WaveNet,
@@ -15,7 +15,8 @@ Prints per batch size the forward's wall time (CUDA events, after a
 warm-up), then, over the profiled forwards, the engine's stage table from
 the program's own spans (core/tracing.py: engine.contraction,
 engine.st_gnn, engine.expansion and the root engine.forward's own part,
-the bottleneck Dense layers and Date2Vec): host ms and device ms (the
+the bottleneck Dense layers and Date2Vec; with GMAN also its gman.*
+spans inside engine.st_gnn): host ms and device ms (the
 spans' CUDA events) per forward; the top kernels by device time; and the
 device's busy share of the wall time (the union of kernel intervals per
 forward ÷ wall, so overlapping kernels count once; the rest is the device
@@ -47,7 +48,7 @@ def main() -> int:
     from outage_bench.trace import union_length
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--st_gnn", choices=("gwnet", "dcrnn"), default="gwnet")
+    ap.add_argument("--st_gnn", choices=("gwnet", "dcrnn", "gman"), default="gwnet")
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 16])
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--out", type=str, default=None, help="also write the report as JSON here")
@@ -103,7 +104,8 @@ def main() -> int:
             stages[sp.name]["device_ms"] += (sp.device_ms or 0.0) / args.repeats
         root = stages.pop("engine.forward")
         stages["engine.forward (own)"] = {
-            "host_ms": root["host_ms"] - sum(v["host_ms"] for v in stages.values())}
+            "host_ms": root["host_ms"] - sum(v["host_ms"] for k, v in stages.items()
+                                             if k.startswith("engine."))}
         busy = union_length(intervals) / 1e6 / args.repeats
         row = {
             "batch": b, "wall_ms_p50": wall, "wall_ms_all": walls,

@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (multimodal_outage_tpu_torch) on
 one NVIDIA card: builds the hand-written kernels from csrc/, holds each
 against its plain PyTorch version at every shape the serving and training
-paths give it, serves a held-out hurricane end to end at full width
+paths give it (kernel 1 also in its up form at the four up levels),
+serves a held-out hurricane end to end at full width
 through the CLI's code path with Graph WaveNet and with DCRNN, trains one
 epoch at full width through the CLI's code path and one through `fit`
 with the per-layer Graph WaveNet kernel, reads the trained checkpoint
@@ -78,6 +79,10 @@ DOUBLE_CONV_SHAPES = (
     (128, 1, 4), (64, 4, 8), (32, 8, 16), (16, 16, 32), (8, 32, 64),
     (16, 64, 32), (32, 32, 16), (64, 16, 8), (128, 8, 4),
 )
+# (H, Cl, C) of the 4 up levels of one forward: skip [M, H, H, C],
+# low-resolution map [M, H/2, H/2, Cl]; the bf16 engine runs each as kernel
+# 1's up form (ConvTranspose 2×2 + concat + DoubleConv 2C → C, one launch)
+UP_SHAPES = ((16, 64, 32), (32, 32, 16), (64, 16, 8), (128, 8, 4))
 # float32: kernel and plain version differ only in summation order, so
 # atol = rtol = 1e-4. bfloat16: both round at the same points from the
 # same inputs, but a different summation order can move a value across a
@@ -260,7 +265,9 @@ def compare(got, want, truth=None):
 
 
 def check_double_conv(torch, F, dcm, gen):
-    """Phase 3a: the DoubleConv kernel at the 9 shapes of a B=1 forward."""
+    """Phase 3a: the DoubleConv kernel at the 9 shapes of a B=1 forward
+    (the bf16 engine runs the last 4 as the up form, below; float32 and
+    training run all 9 in this form), then its up form."""
     rows, failures = [], []
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
@@ -299,7 +306,8 @@ def check_double_conv(torch, F, dcm, gen):
             t_bytes, t_ops = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * nops / PEAK_OPS[dn]
             _, _, smem, blocks = dcm.launch_config(M_B1, h, h, cin, c, dtype, x.device)
             row = {
-                "dtype": dn, "M": M_B1, "H": h, "Cin": cin, "C": c, "max_abs_err": err,
+                "form": "plain", "dtype": dn, "M": M_B1, "H": h, "Cin": cin, "C": c,
+                "max_abs_err": err,
                 "ok": ok, "check": note, "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
                 "vs_library": t_k / t_l, "smem_bytes": smem, "blocks": blocks,
                 "bytes": nbytes, "flop": nops, "bound_ms": max(t_bytes, t_ops),
@@ -309,9 +317,80 @@ def check_double_conv(torch, F, dcm, gen):
             rows.append(row)
             if not ok:
                 failures.append(f"double_conv {dn} H={h} Cin={cin} C={c}: max err {err}")
-    slow = [f"{r['H']}² {r['Cin']}→{r['C']} ({r['vs_library']:.2f}×)"
+    up_rows, up_failures = check_up_double_conv(torch, F, dcm, gen)
+    rows, failures = rows + up_rows, failures + up_failures
+    slow = [f"{r['form']} {r['H']}² {r['Cin']}→{r['C']} M={r['M']} ({r['vs_library']:.2f}×)"
             for r in rows if r["dtype"] == "bfloat16" and r["vs_library"] > 1]
     log(f"phase 3a: bf16 shapes where the kernel is slower than cuDNN: {', '.join(slow) or 'none'}")
+    return rows, failures
+
+
+def check_up_double_conv(torch, F, dcm, gen):
+    """Phase 3a, the up form: kernel 1's up form at the 4 up levels of a
+    B=1 and a B=16 forward, bf16, against up_double_conv_reference
+    (ConvTranspose → concat → the plain DoubleConv) on the same inputs,
+    both held to the float32 computation by the bf16 bar. The ConvTranspose
+    bias is large (~4), so a bias leaking into the concat's SAME padding
+    fails. Library yardstick: cuDNN's ConvTranspose, torch.cat, then cuDNN
+    conv + affine + ReLU twice."""
+    rows, failures = [], []
+    dtype, dev = torch.bfloat16, "cuda"
+    randn = lambda *s: torch.randn(*s, generator=gen, device=dev)
+    for m in (M_B1, 16 * M_B1):
+        for h, cl, c in UP_SHAPES:
+            cin = 2 * c
+            skip = torch.relu(randn(m, h, h, c)).to(dtype)
+            low = torch.relu(randn(m, h // 2, h // 2, cl)).to(dtype)
+            wt = (randn(cl, c, 2, 2) * cl ** -0.5).to(dtype)
+            bt = (4.0 + 0.5 * randn(c)).to(dtype)
+            w1 = (randn(3, 3, cin, c) * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+            w2 = (randn(3, 3, c, c) * (2.0 / (9 * c)) ** 0.5).to(dtype)
+            s1, s2 = (0.5 + torch.rand(c, generator=gen, device=dev) for _ in range(2))
+            b1, b2 = (0.1 * randn(c) for _ in range(2))
+            args = (skip, low, wt, bt, w1, s1, b1, w2, s2, b2)
+            before = (dcm.fused_double_conv.launches, dcm.fused_double_conv.up_launches)
+            got = dcm.fused_up_double_conv(*args)
+            grew = (dcm.fused_double_conv.launches - before[0],
+                    dcm.fused_double_conv.up_launches - before[1])
+            want = dcm.up_double_conv_reference(*args)
+            truth = dcm.up_double_conv_reference(*(a.float() for a in args))
+            torch.cuda.synchronize()
+            err, ok, note = compare(got, want, truth)
+            ok = ok and grew == (1, 1)
+            del truth
+            k1 = w1.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            k2 = w2.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            v = lambda t: t.to(dtype).view(1, -1, 1, 1)
+
+            def library():
+                y = F.conv_transpose2d(low.permute(0, 3, 1, 2), wt, bt, stride=2)
+                x = torch.cat([skip.permute(0, 3, 1, 2), y], 1)
+                y = torch.relu(F.conv2d(x, k1, padding=1) * v(s1) + v(b1))
+                return torch.relu(F.conv2d(y, k2, padding=1) * v(s2) + v(b2))
+
+            reps = 5 if h >= 64 else 10
+            t_k = events_ms(lambda: dcm.fused_up_double_conv(*args), reps)
+            t_p = events_ms(lambda: dcm.up_double_conv_reference(*args), reps)
+            t_l = events_ms(library, reps)
+            nbytes = dcm.up_min_bytes(m, h, h, c, cl, c, skip.element_size())
+            nops = dcm.up_flops(m, h, h, c, cl, c)
+            t_bytes, t_ops = 1e3 * nbytes / H100_BYTES_PER_S, 1e3 * nops / PEAK_OPS["bfloat16"]
+            plan = dcm.plan_bf16(m, h, h, cin, c, cl)
+            row = {
+                "form": "up", "dtype": "bfloat16", "M": m, "H": h, "Cl": cl, "Cin": cin, "C": c,
+                "max_abs_err": err, "ok": ok, "check": note, "launches": grew, "ms": t_k,
+                "plain_ms": t_p, "library_ms": t_l, "vs_library": t_k / t_l,
+                "tile": [plan.th, plan.tw], "smem_bytes": plan.smem, "bytes": nbytes,
+                "flop": nops, "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            }
+            log("double_conv", json.dumps(row))
+            rows.append(row)
+            if not ok:
+                failures.append(f"double_conv up form H={h} Cl={cl} C={c} M={m}: max err {err} "
+                                f"{note}, launches {grew}")
+            del skip, low, got, want
+            torch.cuda.empty_cache()
     return rows, failures
 
 
@@ -519,6 +598,17 @@ def check_dcrnn_stack(torch, dsm, weights, gen):
     return rows, failures
 
 
+def check_up_launches(dcm, f, label, since=0):
+    """Every up level of a bf16 forward at 128² runs kernel 1's up form:
+    fused_double_conv.up_launches grew by 4 a forward since `since`."""
+    up = dcm.fused_double_conv.up_launches - since
+    log(f"{label}: {f} forwards, {up} up-form launches")
+    if up != 4 * f:
+        raise RuntimeError(f"{label}: {f} forwards launched the up form {up} times, "
+                           f"expected {4 * f}")
+    return up
+
+
 def serve_dcrnn_end_to_end(torch, cli, dcm, dsm, gsm, store_dir):
     """Phase 4c: `serve --st_gnn dcrnn` at B=1 and B=16, full width,
     through the CLI's code path; the launch counters are set to 0 just
@@ -530,6 +620,7 @@ def serve_dcrnn_end_to_end(torch, cli, dcm, dsm, gsm, store_dir):
     for b, k in ((1, 3), (16, 2)):
         for c in counters:
             c.launches = 0
+        dcm.fused_double_conv.up_launches = 0
         out = cli.run(common + ["--batch_size", str(b), "--max_batches", str(k)])
         torch.cuda.synchronize()
         grew = tuple(c.launches for c in counters)
@@ -539,6 +630,7 @@ def serve_dcrnn_end_to_end(torch, cli, dcm, dsm, gsm, store_dir):
         if grew != (9 * f, f, 0):
             raise RuntimeError(f"serve dcrnn B={b}: {f} forwards launched {grew}, "
                                f"expected {(9 * f, f, 0)}")
+        check_up_launches(dcm, f, f"serve dcrnn B={b}")
         if not all(math.isfinite(v) for v in (*out["metrics"].values(), *out["latency"].values())):
             raise RuntimeError(f"serve dcrnn B={b}: non-finite metrics {out}")
         runs[b] = out
@@ -611,10 +703,11 @@ def serve_end_to_end(torch, cli, dcm, gsm, workdir):
     common = ["serve", "--data_dir", store_dir, "--case", "michael",
               "--dataset_range", "24", "--seed", "0", "--latency_stats"]
     runs = {}
-    dcm.fused_double_conv.launches = 0
+    dcm.fused_double_conv.launches = dcm.fused_double_conv.up_launches = 0
     gsm.gwnet_stack_forward.launches = 0
     for b, k in ((1, 3), (16, 3)):
         before = (dcm.fused_double_conv.launches, gsm.gwnet_stack_forward.launches)
+        up0 = dcm.fused_double_conv.up_launches
         out = cli.run(common + ["--batch_size", str(b), "--max_batches", str(k)])
         torch.cuda.synchronize()
         f = out["forwards"]
@@ -623,10 +716,12 @@ def serve_end_to_end(torch, cli, dcm, gsm, workdir):
         log(f"serve B={b}: {json.dumps(out)} launches {grew}")
         if grew != (9 * f, f):
             raise RuntimeError(f"serve B={b}: {f} forwards launched {grew}, expected {(9 * f, f)}")
+        check_up_launches(dcm, f, f"serve B={b}", since=up0)
         if not all(math.isfinite(v) for v in out["metrics"].values()):
             raise RuntimeError(f"serve B={b}: non-finite metrics {out['metrics']}")
         runs[b] = out
     launches = {"double_conv": dcm.fused_double_conv.launches,
+                "double_conv_up": dcm.fused_double_conv.up_launches,
                 "gwnet_stack": gsm.gwnet_stack_forward.launches}
     return store_dir, runs, launches
 
@@ -907,6 +1002,7 @@ def checkpoint_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, store_dir, tra
     shutil.rmtree(preds_dir)
 
     dcm.fused_double_conv.launches = gsm.gwnet_stack_forward.launches = 0
+    dcm.fused_double_conv.up_launches = 0
     sv = cli.run(["serve", "--checkpoint_path", ckpt, "--case", "michael", "--batch_size", "8",
                   "--dataset_range", str(TRAIN_MARGIN), "--data_dir", train_store,
                   "--latency_stats"])
@@ -918,6 +1014,7 @@ def checkpoint_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, store_dir, tra
         f"gwnet_stack) {grew}; relative gaps to evaluate {json.dumps(gaps)}")
     if grew != (9 * f, f):
         raise RuntimeError(f"phase 7b: {f} forwards launched {grew}, expected {(9 * f, f)}")
+    check_up_launches(dcm, f, "phase 7b")
     if max(gaps.values()) > SERVE_RTOL:
         raise RuntimeError(f"phase 7b: serve {sv['metrics']} vs evaluate {ev['metrics']}")
 
@@ -927,6 +1024,7 @@ def checkpoint_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, store_dir, tra
     counters = (dcm.fused_double_conv, dsm.dcrnn_stack_forward, gsm.gwnet_stack_forward)
     for c in counters:
         c.launches = 0
+    dcm.fused_double_conv.up_launches = 0
     sd = cli.run(["serve", "--checkpoint_path", d_ckpt, "--st_gnn", "dcrnn", "--data_dir",
                   store_dir, "--case", "michael", "--dataset_range", "24", "--batch_size", "1",
                   "--max_batches", "3", "--latency_stats"])
@@ -936,6 +1034,7 @@ def checkpoint_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, store_dir, tra
         f"(double_conv, dcrnn_stack, gwnet_stack) {grew}")
     if grew != (9 * f, f, 0):
         raise RuntimeError(f"phase 7c: {f} forwards launched {grew}, expected {(9 * f, f, 0)}")
+    check_up_launches(dcm, f, "phase 7c")
     if sd["metrics"] != dcrnn_b1["metrics"]:
         raise RuntimeError(f"phase 7c: {sd['metrics']} differ from --seed 0's {dcrnn_b1['metrics']}")
     for name, out in (("7b serve gwnet B=8", sv), ("7c serve dcrnn B=1", sd)):
@@ -1068,6 +1167,7 @@ def train_dcrnn_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, train_store):
     counters = (dcm.fused_double_conv, dsm.dcrnn_stack_forward, gsm.gwnet_stack_forward)
     for c in counters:
         c.launches = 0
+    dcm.fused_double_conv.up_launches = 0
     sv = cli.run(["serve", "--checkpoint_path", ckpt, "--st_gnn", "dcrnn", "--case", "michael",
                   "--batch_size", "8", "--dataset_range", str(TRAIN_MARGIN), "--data_dir",
                   train_store, "--latency_stats"])
@@ -1080,6 +1180,7 @@ def train_dcrnn_end_to_end(torch, cli, dcm, dsm, gsm, mp, workdir, train_store):
         f"{json.dumps(gaps)}")
     if grew != (9 * f, f, 0):
         raise RuntimeError(f"phase 8d: {f} forwards launched {grew}, expected {(9 * f, f, 0)}")
+    check_up_launches(dcm, f, "phase 8d")
     if max(gaps.values()) > SERVE_RTOL:
         raise RuntimeError(f"phase 8d: serve {sv['metrics']} vs evaluate {ev['metrics']}")
     return {"train_step_ms_p50": out["train_step_ms_p50"], "peak_gib": peak / 2**30,
@@ -1304,6 +1405,7 @@ def graph_flags_end_to_end(torch, cli, dcm, dsm, gsm, weights, store_dir, workdi
     ):
         for b, k in ((1, 3), (16, 2)):
             dcm.fused_double_conv.launches = gsm.gwnet_stack_forward.launches = 0
+            dcm.fused_double_conv.up_launches = 0
             out = cli.run(common + flags + ["--batch_size", str(b), "--max_batches", str(k)])
             torch.cuda.synchronize()
             grew, f = (dcm.fused_double_conv.launches, gsm.gwnet_stack_forward.launches), \
@@ -1312,6 +1414,7 @@ def graph_flags_end_to_end(torch, cli, dcm, dsm, gsm, weights, store_dir, workdi
                 f"launches (double_conv, gwnet_stack) {grew}")
             if grew != (9 * f, f):
                 raise RuntimeError(f"phase 9c S={s_count} B={b}: {f} forwards launched {grew}")
+            check_up_launches(dcm, f, f"phase 9c S={s_count} B={b}")
             if not all(math.isfinite(v) for v in out["metrics"].values()):
                 raise RuntimeError(f"phase 9c S={s_count} B={b}: non-finite metrics {out}")
             runs[(s_count, b)] = out
@@ -1329,6 +1432,7 @@ def graph_flags_end_to_end(torch, cli, dcm, dsm, gsm, weights, store_dir, workdi
     counters = (dcm.fused_double_conv, dsm.dcrnn_stack_forward, gsm.gwnet_stack_forward)
     for c in counters:
         c.launches = 0
+    dcm.fused_double_conv.up_launches = 0
     sd = cli.run(["serve", "--st_gnn", "dcrnn", "--data_dir", store_dir, "--case", "michael",
                   "--dataset_range", "24", "--seed", "0", "--latency_stats", "--batch_size", "1",
                   "--max_batches", "3", "--adjacency", copy])
@@ -1339,6 +1443,7 @@ def graph_flags_end_to_end(torch, cli, dcm, dsm, gsm, weights, store_dir, workdi
     if grew != (9 * f, f, 0) or sd["metrics"] != dcrnn_b1["metrics"]:
         raise RuntimeError(f"phase 9c: dcrnn --adjacency {sd['metrics']} launches {grew}, "
                            f"phase 4c {dcrnn_b1['metrics']}")
+    check_up_launches(dcm, f, "phase 9c dcrnn --adjacency")
     for (s_count, b), out in runs.items():
         log(f"phase 9c: serve S={s_count} B={b} p50 {out['latency']['p50_ms']:.3f} ms "
             f"p90 {out['latency']['p90_ms']:.3f} ms")
@@ -1439,6 +1544,7 @@ def nonfused_gwnet_end_to_end(torch, cli, dcm, gsm, glm, mp, weights, workdir, s
     for b in (1, 16):
         ev_b = evaluate(b)
         dcm.fused_double_conv.launches = gsm.gwnet_stack_forward.launches = 0
+        dcm.fused_double_conv.up_launches = 0
         sv = cli.run(["serve", "--checkpoint_path", ckpt, "--batch_size", str(b),
                       "--latency_stats", *common])
         torch.cuda.synchronize()
@@ -1450,6 +1556,7 @@ def nonfused_gwnet_end_to_end(torch, cli, dcm, gsm, glm, mp, weights, workdir, s
             f"gwnet_stack) {grew}; relative gaps to evaluate at B={b} {json.dumps(gaps)}")
         if grew != (9 * f, 0):
             raise RuntimeError(f"phase 10c: {f} forwards launched {grew}, expected {(9 * f, 0)}")
+        check_up_launches(dcm, f, f"phase 10c B={b}")
         if max(gaps.values()) > SERVE_RTOL:
             raise RuntimeError(f"phase 10c: serve {sv['metrics']} vs evaluate {ev_b['metrics']}")
         serves[b] = {**sv["latency"], "gap": max(gaps.values())}
@@ -2054,6 +2161,7 @@ def data_path_end_to_end(torch, cli, dcm, gsm, mp, workdir, train_store, trained
     pool, f = (mp.max_pool_forward.launches, mp.max_pool_backward.launches), ev["forwards"]
     gap = max(abs(ev["metrics"][k] - res[f"test_{k}"]) / abs(res[f"test_{k}"]) for k in METRICS)
     dcm.fused_double_conv.launches = gsm.gwnet_stack_forward.launches = 0
+    dcm.fused_double_conv.up_launches = 0
     sv = cli.run(["serve", *common])
     torch.cuda.synchronize()
     grew, fs = (dcm.fused_double_conv.launches, gsm.gwnet_stack_forward.launches), sv["forwards"]
@@ -2066,6 +2174,7 @@ def data_path_end_to_end(torch, cli, dcm, gsm, mp, workdir, train_store, trained
         raise RuntimeError(f"phase 12c: evaluate launched {pool} in {f} forwards, gap {gap}")
     if grew != (9 * fs, fs) or max(gaps.values()) > SERVE_RTOL:
         raise RuntimeError(f"phase 12c: serve launched {grew} in {fs} forwards, gaps {gaps}")
+    check_up_launches(dcm, fs, "phase 12c")
     out["c"] = {"evaluate_gap": gap, "evaluate_pool_launches": pool, "serve_launches": grew,
                 "serve_gaps": gaps}
     shutil.rmtree(big)
@@ -2325,11 +2434,13 @@ def import_torch_end_to_end(torch, cli, dcm, gsm, mp, workdir, train_store, trai
         for name, src in (("serve_imported", ["--checkpoint_path", ckpt]),
                           ("serve_npz", ["--weights", npz])):
             dcm.fused_double_conv.launches = gsm.gwnet_stack_forward.launches = 0
+            dcm.fused_double_conv.up_launches = 0
             preds = os.path.join(workdir, f"{name}_preds")
             runs[name] = cli.run(["serve", *src, *common, "--latency_stats", "--save_preds",
                                   preds])
             torch.cuda.synchronize()
             launches[name] = (dcm.fused_double_conv.launches, gsm.gwnet_stack_forward.launches)
+            check_up_launches(dcm, runs[name]["forwards"], f"phase 13e {name}")
             runs[name]["preds"] = np.load(os.path.join(preds, "preds.npy"))
             shutil.rmtree(preds)
     finally:
@@ -3061,7 +3172,11 @@ def main() -> int:
         p15 = mesh_end_to_end(torch, cli, workdir, train_store, trained, p7)
         log(f"phase 15: {json.dumps(p15)}; {time.perf_counter() - t15:.1f} s")
 
-    main_dc = [r for r in dc_rows if r["dtype"] == "bfloat16"]
+    # one B=1 bf16 forward's kernel 1 calls: the 5 contraction shapes in the
+    # plain form, the 4 up levels in the up form
+    main_dc = ([r for r in dc_rows if r["form"] == "plain" and r["dtype"] == "bfloat16"][:5]
+               + [r for r in dc_rows if r["form"] == "up" and r["M"] == M_B1])
+    assert [(r["H"], r["C"]) for r in main_dc] == [(h, c) for h, _, c in DOUBLE_CONV_SHAPES]
     main_st = [r for r in st_rows if r["dtype"] == "bfloat16" and r["B"] == 1][0]
     dc_bytes = sum(r["bytes"] for r in main_dc) / H100_BYTES_PER_S
     dc_ops = sum(r["flop"] for r in main_dc) / PEAK_OPS["bfloat16"]
@@ -3071,6 +3186,7 @@ def main() -> int:
             "source": "multimodal_outage_tpu_torch/csrc/double_conv.cu",
             "replaces": "multimodal_outage_tpu/ops/unet_pallas.py:119",
             "launches": launches["double_conv"],
+            "up_launches": launches["double_conv_up"],  # of them, the up form's
             "launches_phase12": p12["c"]["serve_launches"][0],  # 12c: serve from the host path
             "launches_phase13": p13["launches"]["serve"][0],  # 13e: serve of an import
             "launches_phase14": p14["launches"]["double_conv"],  # 14d: the bench configs
@@ -3140,7 +3256,9 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": None, **extra,
         })
     log(f"total {time.perf_counter() - t_start:.1f} s; kernel times are bf16: one B=1 "
-        "serving forward's calls (double_conv: the sum of its 9 shapes), one B=8 "
+        "serving forward's calls (double_conv: the sum of its 5 contraction shapes and its "
+        "up form at the 4 up levels, plain_ms and library_ms the same levels as "
+        "ConvTranspose → concat → DoubleConv), one B=8 "
         "train step's pools (max_pool: the sum of its 4 shapes), one B=8 call of the "
         "per-layer kernel (gwnet_layer: 8 per step; ms by back-to-back events, host "
         "enqueue included; device_ms the kernel's own time from torch.profiler) "

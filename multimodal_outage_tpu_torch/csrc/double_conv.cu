@@ -57,6 +57,15 @@
 // plan_bf16 mirrors it and picks the tile (up to 32×32), and the launcher
 // refuses a byte count that differs.
 //
+// Its up form (double_conv_up_launch, the same kernel with UP = true)
+// runs a U-Net up level, ConvTranspose 2×2 stride 2 → concat [skip, up] →
+// DoubleConv, as one launch: the input tile's skip channels arrive by
+// cp.async as above, its up channels are built in shared memory from the
+// low-resolution tile (a GEMM over its pixels, one per 2 × 2 block), so
+// neither the upsampled map nor the concat is written to device memory:
+// as separate ops the level writes the upsampled map, reads it and the
+// skip into a concat twice as wide and reads that again, ~3.4× the bytes.
+//
 // float32: double_conv_kernel, CUDA-core FMAs (TF32 would break the 1e-4
 // float32 bar). One block per (image, TH×TW output tile) stages the input
 // tile with a 2-pixel halo, computes conv1 + affine + ReLU over the tile
@@ -67,7 +76,9 @@
 //
 // Layouts: x [M, H, W, Cin], w1 [3, 3, Cin, C], w2 [3, 3, C, C] (HWIO),
 // s1/b1/s2/b2 [C] float32, out [M, H, W, C]; storage float32 or bfloat16.
-// C must be a multiple of 4 (and at most 128 in bf16).
+// C must be a multiple of 4 (and at most 128 in bf16). The up form: x is
+// the skip [M, H, W, Cin − C], low [M, H/2, W/2, Cl], the ConvTranspose's
+// weight [Cl, C, 2, 2] and bias [C] in bf16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -234,6 +245,13 @@ __host__ __device__ inline int n_tiles(int c) {
   return p;
 }
 __host__ __device__ inline int up16(int b) { return (b + 15) / 16 * 16; }
+// n-tiles of the up form's ConvTranspose GEMM: at C ≤ 8 the DoubleConv's
+// one (a pass of N = 8 columns: one parity, or two at C = 4), which keeps
+// the registers that let three blocks share an SM; above, all four
+// parities of C ≤ 32 channels in one pass (4 × the DoubleConv's, at most 16)
+__host__ __device__ constexpr int up_n_tiles(int nt) {
+  return nt == 1 ? 1 : 4 * nt < 16 ? 4 * nt : 16;
+}
 
 struct Bf16Layout {
   int cp1, cp2, s1, s2, nt, kc1, kc2, ih, iw, mh, mw;
@@ -242,11 +260,17 @@ struct Bf16Layout {
   // taps span a 3 × (2 + px) window; else 1 (3 × 3 taps)
   int px, win;
   int rows1, rows2;  // GEMM rows of conv1 and conv2, rounded up to 32 (two m16 tiles)
+  // up form (cl > 0): the low-resolution tile of lh × lw pixels that the
+  // input tile's 2 × 2 blocks come from, cl channels padded to cpl for K
+  // (kcu chunks), sl bf16 a pixel; its GEMM rows rounded up to 32; pp
+  // parities in one pass of N = 8·ntu columns, `passes` passes
+  int cpl, sl, lh, lw, rowsu, kcu, ntu, pp, passes;
   // byte offsets in dynamic shared memory, and the total
-  int wb1, wb2, aff, off1, off2, pix, row1, row2, in0, in1, mid, bytes;
+  int wb1, wb2, aff, off1, off2, pix, row1, row2, in0, insz, mid;
+  int wbu, affu, ucol, offu, lpix, rowu, low0, lowsz, bytes;
 };
 
-__host__ __device__ inline Bf16Layout bf16_layout(int cin, int c, int th, int tw) {
+__host__ __device__ inline Bf16Layout bf16_layout(int cin, int c, int th, int tw, int cl) {
   Bf16Layout L;
   L.cp1 = k_pad(cin);
   L.cp2 = k_pad(c);
@@ -260,6 +284,15 @@ __host__ __device__ inline Bf16Layout bf16_layout(int cin, int c, int th, int tw
   L.ih = th + 4; L.iw = tw + 4; L.mh = th + 2; L.mw = tw + 2;
   L.rows1 = (L.mh * L.mw / L.px + 31) / 32 * 32;
   L.rows2 = (th * tw / L.px + 31) / 32 * 32;
+  L.cpl = cl > 0 ? k_pad(cl) : 0;
+  L.sl = cl > 0 ? pix_stride(L.cpl) : 0;
+  L.lh = cl > 0 ? th / 2 + 2 : 0;
+  L.lw = cl > 0 ? tw / 2 + 2 : 0;
+  L.rowsu = (L.lh * L.lw + 31) / 32 * 32;
+  L.kcu = (L.cpl + 15) / 16;
+  L.ntu = up_n_tiles(L.nt);
+  L.pp = 8 * L.ntu / c < 4 ? 8 * L.ntu / c : 4;
+  L.passes = cl > 0 ? (4 + L.pp - 1) / L.pp : 0;
   int o = 0;
   L.wb1 = o; o += L.kc1 * L.nt * 256;  // packed B fragments of w1
   L.wb2 = o; o += L.kc2 * L.nt * 256;  // and of w2
@@ -269,9 +302,18 @@ __host__ __device__ inline Bf16Layout bf16_layout(int cin, int c, int th, int tw
   L.pix = o; o += up16(4 * L.ih * L.iw);  // input-tile pixel → (y << 16) | x
   L.row1 = o; o += 8 * L.rows1;           // GEMM row → {source word, (y << 16) | x}
   L.row2 = o; o += 8 * L.rows2;
-  L.in0 = o; o += up16(L.ih * L.iw * L.s1 * 2);  // input tile, two buffers
-  L.in1 = o; o += up16(L.ih * L.iw * L.s1 * 2);
+  L.insz = up16(L.ih * L.iw * L.s1 * 2);
+  L.in0 = o; o += 2 * L.insz;  // input tile, two buffers
   L.mid = o; o += up16(L.mh * L.mw * L.s2 * 2);  // intermediate + 1-pixel halo
+  // up form only (all empty at cl = 0)
+  L.wbu = o; o += L.passes * L.kcu * L.ntu * 256;  // ConvTranspose weights by pass
+  L.affu = o; o += cl > 0 ? 8 * L.ntu * 4 : 0;      // its bias by column, float32
+  L.ucol = o; o += cl > 0 ? 8 * L.ntu * 4 : 0;      // column → (parity in pass << 16) | co
+  L.offu = o; o += 32 * L.kcu;
+  L.lpix = o; o += up16(4 * L.lh * L.lw);          // low-tile pixel → (y << 16) | x
+  L.rowu = o; o += 8 * L.rowsu;
+  L.lowsz = up16(L.lh * L.lw * L.sl * 2);
+  L.low0 = o; o += 2 * L.lowsz;                    // low-resolution tile, two buffers
   L.bytes = o;
   return L;
 }
@@ -317,6 +359,26 @@ __device__ void stage_weights(const bf16* __restrict__ w, int cin, int c, int cp
   }
 }
 
+// The ConvTranspose 2×2 stride 2 as one B per pass g: B[k][n] with k = ci
+// and n = p·c + co for parity par = g·pp + p < 4 (par = 2·(y & 1) + (x & 1)
+// of the output pixel): wt[ci][co][par], wt in F.conv_transpose2d's layout
+// [cl, c, 2, 2] (the flax kernel flipped, weights.conv_transpose_weight);
+// zero where ci ≥ cl or n ≥ pp·c. Fragment order as stage_weights over nt
+// n-tiles, pass g at uint2 g·kc·nt·32.
+__device__ void stage_up_weights(const bf16* __restrict__ wt, int cl, int c, int kc, int nt,
+                                 int pp, int passes, uint2* dst) {
+  const int per = kc * nt * 32;
+  for (int i = threadIdx.x; i < passes * per; i += blockDim.x) {
+    const int g = i / per, r = i - g * per, lane = r & 31, tile = r >> 5;
+    const int j = tile / nt, n = (tile % nt) * 8 + (lane >> 2), k = 16 * j + 2 * (lane & 3);
+    const int par = g * pp + n / c, co = n % c;
+    auto wv = [&](int ci) {
+      return ci < cl && n < pp * c && par < 4 ? wt[(ci * c + co) * 4 + par] : __float2bfloat16_rn(0.f);
+    };
+    dst[i] = make_uint2(pack_bf16(wv(k), wv(k + 1)), pack_bf16(wv(k + 8), wv(k + 9)));
+  }
+}
+
 // word offset of K pair q (k = 2q, 2q+1) from a GEMM row's first tap, in
 // a tile of row width rw pixels and s bf16 per pixel, over a 3 × win tap
 // window; K pairs past the window point at the first tap (finite data
@@ -343,17 +405,20 @@ __device__ void stage_rows(int rows, int padded, int width, int px, int src_w, i
 }
 
 // One implicit GEMM over a shared tile: rows from the row table, K = kc
-// chunks of 16, N = 8·NT. Each warp takes MI m16 tiles at a time (two
+// chunks of 16, N = 8·NT, for each of `parts` B matrices (kc·NT·32 uint2
+// apart) over the same rows. Each warp takes MI m16 tiles at a time (two
 // independent accumulator chains sharing the offset and B loads where N
-// is narrow); epi(r0, yx0, yx1, acc) gets each m16 tile's lane rows r0
-// and r0 + 8 with their (y << 16) | x.
+// is narrow); epi(part, r0, yx0, yx1, acc) gets each m16 tile's lane rows
+// r0 and r0 + 8 with their (y << 16) | x.
 template <int NT, typename Epi>
 __device__ __forceinline__ void conv_gemm(const uint32_t* src, const int2* rowt, int rows,
-                                          const int* off, int kc, const uint2* wb, Epi epi) {
+                                          const int* off, int kc, const uint2* wb, Epi epi,
+                                          int parts = 1) {
   constexpr int MI = NT <= 4 ? 2 : 1;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int groups = (rows + 16 * MI - 1) / (16 * MI);
-  for (int grp = threadIdx.x >> 5; grp < groups; grp += kWarps) {
+  for (int gg = threadIdx.x >> 5; gg < groups * parts; gg += kWarps) {
+    const int part = parts == 1 ? 0 : gg / groups, grp = gg - part * groups;
     const int r0 = grp * 16 * MI + g;
     int p[MI][2], yx[MI][2];  // the lane's rows: first-tap word in src, (y << 16) | x
 #pragma unroll
@@ -370,7 +435,7 @@ __device__ __forceinline__ void conv_gemm(const uint32_t* src, const int2* rowt,
     for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int n = 0; n < NT; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
-    const uint2* b = wb + lane;
+    const uint2* b = wb + part * kc * NT * 32 + lane;
 #pragma unroll 2
     for (int j = 0; j < kc; ++j, b += NT * 32) {
       const int lo = off[8 * j + t], hi = off[8 * j + t + 4];
@@ -388,7 +453,7 @@ __device__ __forceinline__ void conv_gemm(const uint32_t* src, const int2* rowt,
       }
     }
 #pragma unroll
-    for (int i = 0; i < MI; ++i) epi(r0 + 16 * i, yx[i][0], yx[i][1], acc[i]);
+    for (int i = 0; i < MI; ++i) epi(part, r0 + 16 * i, yx[i][0], yx[i][1], acc[i]);
   }
 }
 
@@ -397,18 +462,41 @@ __device__ __forceinline__ void conv_gemm(const uint32_t* src, const int2* rowt,
 constexpr int kPre = 4;
 
 // blocks per SM the registers must allow: the narrow shapes are small in
-// shared memory and hide latency with more resident blocks
-template <int NT> constexpr int min_blocks() { return NT <= 2 ? 3 : NT <= 4 ? 2 : 1; }
+// shared memory and hide latency with more resident blocks (the up form
+// holds more in shared memory and in registers: fewer)
+template <int NT, bool UP> constexpr int min_blocks() {
+  return NT <= (UP ? 1 : 2) ? 3 : NT <= (UP ? 2 : 4) ? 2 : 1;
+}
 
-template <int NT>
-__global__ void __launch_bounds__(kThreads, min_blocks<NT>())
+// The ConvTranspose's operands of an up-form launch (UP below); unused
+// (null, 0) by the plain form
+struct UpArgs {
+  const bf16* low;  // [M, H/2, W/2, cl]
+  const bf16* wt;   // [cl, C, 2, 2], F.conv_transpose2d's layout
+  const bf16* bt;   // [C]
+  int cl;
+};
+
+// UP = false: x [M, H, W, cin] is the DoubleConv's input. UP = true (the
+// U-Net's up level): x is the skip [M, H, W, cin − C], and the input
+// tile's channels [cin − C, cin) are the ConvTranspose 2×2 stride 2 of
+// up.low, built per item in shared memory, so neither the upsampled map
+// nor the concat reaches device memory. The low-resolution tile (each of
+// its pixels is one 2 × 2 block of the input tile) arrives by cp.async
+// beside the skip's channels, double-buffered like them; a GEMM over its
+// pixels (K = cl, N = C channels × the parities of a pass) writes the up
+// channels, bias added in float32 and rounded to bf16 once, zero outside
+// the image (the concat's SAME padding), in a phase of its own before
+// conv1. Conv1 and conv2 are the plain form's.
+template <int NT, bool UP>
+__global__ void __launch_bounds__(kThreads, min_blocks<NT, UP>())
 double_conv_kernel_bf16_mma(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                             const float* __restrict__ s1, const float* __restrict__ b1,
                             const bf16* __restrict__ w2, const float* __restrict__ s2,
                             const float* __restrict__ b2, bf16* __restrict__ out, int M, int H,
-                            int W, int cin, int c, int th, int tw) {
+                            int W, int cin, int c, int th, int tw, UpArgs up) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Bf16Layout L = bf16_layout(cin, c, th, tw);
+  const Bf16Layout L = bf16_layout(cin, c, th, tw, UP ? up.cl : 0);
   const uint2* wb1 = reinterpret_cast<const uint2*>(smem + L.wb1);
   const uint2* wb2 = reinterpret_cast<const uint2*>(smem + L.wb2);
   float* aff = reinterpret_cast<float*>(smem + L.aff);  // [4][8·NT]
@@ -417,17 +505,22 @@ double_conv_kernel_bf16_mma(const bf16* __restrict__ x, const bf16* __restrict__
   int* pix = reinterpret_cast<int*>(smem + L.pix);
   const int2* row1 = reinterpret_cast<const int2*>(smem + L.row1);
   const int2* row2 = reinterpret_cast<const int2*>(smem + L.row2);
-  // input tile buffer b (0 or 1); arithmetic, not an array, keeps it off the stack
-  auto tin = [&](int b) { return reinterpret_cast<bf16*>(smem + (b ? L.in1 : L.in0)); };
+  // input tile buffer b (0 or 1); arithmetic, not an array or a select of
+  // two offsets, keeps it off the stack (the up form at one n-tile spills
+  // 300 bytes with the select)
+  auto tin = [&](int b) { return reinterpret_cast<bf16*>(smem + L.in0 + b * L.insz); };
+  auto tlow = [&](int b) { return reinterpret_cast<bf16*>(smem + L.low0 + b * L.lowsz); };
   uint32_t* mid = reinterpret_cast<uint32_t*>(smem + L.mid);
   constexpr int NP = 8 * NT;
+  constexpr int NTU = up_n_tiles(NT);
 
   const int tiles_x = (W + tw - 1) / tw, tiles = tiles_x * ((H + th - 1) / th);
   const int items = M * tiles;
-  const int vec = cin % 8 == 0 ? 8 : cin % 4 == 0 ? 4 : 0;  // cp.async width, channels
+  const int xc = UP ? cin - c : cin;  // channels of x a pixel
+  const int vec = xc % 8 == 0 ? 8 : xc % 4 == 0 ? 4 : 0;  // cp.async width, channels
   const int npix = L.ih * L.iw;
   // per input pixel: cp.async pieces (vec) or words (register path)
-  const int per_pix = vec ? cin / vec : L.cp1 / 2;
+  const int per_pix = vec ? xc / vec : L.cp1 / 2;
   const int per_shift = __ffs(per_pix) - 1;
   const bool per_pow2 = (per_pix & (per_pix - 1)) == 0;
 
@@ -447,22 +540,47 @@ double_conv_kernel_bf16_mma(const bf16* __restrict__ x, const bf16* __restrict__
     gx = ox - 2 + (yx & 0xffff);
     return gy >= 0 && gy < H && gx >= 0 && gx < W;
   };
-  // cp.async the item's input tile; zero-fill outside the image
+  // cp.async the item's input tile (the skip's channels in the up form);
+  // zero-fill outside the image
   auto stage_async = [&](int item, bf16* buf) {
     int m, oy, ox;
     origin(item, m, oy, ox);
-    const bf16* xm = x + (size_t)m * H * W * cin;
+    const bf16* xm = x + (size_t)m * H * W * xc;
     for (int i = threadIdx.x; i < npix * per_pix; i += blockDim.x) {
       int p, k, gy, gx;
       const bool in = locate(i, oy, ox, p, k, gy, gx);
-      const bf16* src = in ? xm + ((size_t)gy * W + gx) * cin + k * vec : x;
+      const bf16* src = in ? xm + ((size_t)gy * W + gx) * xc + k * vec : x;
       if (vec == 8) cp_async16(buf + p * L.s1 + k * 8, src, in ? 16 : 0);
       else cp_async8(buf + p * L.s1 + k * 4, src, in ? 8 : 0);
     }
   };
-  // register path (Cin % 4 != 0): load the item's channel pairs into
-  // registers now, store them (pad channels as 0) after the current item
-  // computes, so the loads' latency hides behind it
+  // up form: cp.async the item's low-resolution tile, rows oy/2 − 1 …
+  // oy/2 + th/2 and columns likewise (tiles start at even pixels), zero
+  // outside the low-resolution map
+  const int hl = H / 2, wl = W / 2, lvec = up.cl % 8 == 0 ? 8 : 4, lper = up.cl / lvec;
+  const int lpix_n = L.lh * L.lw, lper_shift = __ffs(lper) - 1;
+  const bool lper_pow2 = (lper & (lper - 1)) == 0;
+  const int* lpix = reinterpret_cast<const int*>(smem + L.lpix);
+  auto stage_low = [&](int item, bf16* buf) {
+    int m, oy, ox;
+    origin(item, m, oy, ox);
+    const bf16* lm = up.low + (size_t)m * hl * wl * up.cl;
+    for (int i = threadIdx.x; i < lpix_n * lper; i += blockDim.x) {
+      const int p = lper_pow2 ? i >> lper_shift : i / lper, k = i - p * lper, yx = lpix[p];
+      const int gy = oy / 2 - 1 + (yx >> 16), gx = ox / 2 - 1 + (yx & 0xffff);
+      const bool in = gy >= 0 && gy < hl && gx >= 0 && gx < wl;
+      const bf16* src = in ? lm + ((size_t)gy * wl + gx) * up.cl + k * lvec : up.low;
+      if (lvec == 8) cp_async16(buf + p * L.sl + k * 8, src, in ? 16 : 0);
+      else cp_async8(buf + p * L.sl + k * 4, src, in ? 8 : 0);
+    }
+  };
+  auto stage_item = [&](int item, int b) {
+    stage_async(item, tin(b));
+    if constexpr (UP) stage_low(item, tlow(b));
+  };
+  // register path (Cin % 4 != 0, plain form only): load the item's channel
+  // pairs into registers now, store them (pad channels as 0) after the
+  // current item computes, so the loads' latency hides behind it
   bf16 pre_lo[kPre], pre_hi[kPre];
   auto load_regs = [&](int item) {
     int m, oy, ox;
@@ -496,10 +614,14 @@ double_conv_kernel_bf16_mma(const bf16* __restrict__ x, const bf16* __restrict__
 
   // once per block: the pixel and row tables, weights, affine, offsets
   for (int q = threadIdx.x; q < npix; q += blockDim.x) pix[q] = ((q / L.iw) << 16) | (q % L.iw);
+  if constexpr (UP) {
+    int* lp = reinterpret_cast<int*>(smem + L.lpix);
+    for (int q = threadIdx.x; q < lpix_n; q += blockDim.x) lp[q] = ((q / L.lw) << 16) | (q % L.lw);
+  }
   __syncthreads();  // the first tile's staging reads pix
   int item = blockIdx.x;
   if (item < items) {  // the first tile's loads overlap the weight staging
-    if (vec) stage_async(item, tin(0));
+    if (vec) stage_item(item, 0);
     else load_regs(item);
   }
   cp_async_commit();
@@ -524,13 +646,70 @@ double_conv_kernel_bf16_mma(const bf16* __restrict__ x, const bf16* __restrict__
       tin(b)[(r / padc) * L.s1 + cin + r % padc] = __float2bfloat16_rn(0.f);
     }
   }
+  const int lrows = L.lh * L.lw;  // the up GEMM's rows: low-tile pixels
+  if constexpr (UP) {
+    stage_rows(lrows, L.rowsu, L.lw, 1, L.lw, L.sl / 2, reinterpret_cast<int2*>(smem + L.rowu));
+    stage_up_weights(up.wt, up.cl, c, L.kcu, L.ntu, L.pp, L.passes,
+                     reinterpret_cast<uint2*>(smem + L.wbu));
+    float* affu = reinterpret_cast<float*>(smem + L.affu);
+    int* ucol = reinterpret_cast<int*>(smem + L.ucol);
+    for (int i = threadIdx.x; i < 8 * L.ntu; i += blockDim.x) {
+      const bool real = i < L.pp * c;
+      affu[i] = real ? __bfloat162float(up.bt[i % c]) : 0.f;
+      ucol[i] = real ? ((i / c) << 16) | (i % c) : -1;
+    }
+    // a 1 × 1 tap: K pair q is word q of the pixel, pairs past cpl point
+    // at word 0 (finite data against zero weights)
+    int* offu = reinterpret_cast<int*>(smem + L.offu);
+    for (int q = threadIdx.x; q < 8 * L.kcu; q += blockDim.x) offu[q] = 2 * q < L.cpl ? q : 0;
+    if (up.cl < L.cpl) {  // the low tile's pad channels
+      const int padc = L.cpl - up.cl;
+      for (int i = threadIdx.x; i < 2 * lrows * padc; i += blockDim.x) {
+        const int b = i / (lrows * padc), r = i % (lrows * padc);
+        tlow(b)[(r / padc) * L.sl + up.cl + r % padc] = __float2bfloat16_rn(0.f);
+      }
+    }
+  }
   if (!vec && item < items) store_regs(tin(0));
 
   const int t = threadIdx.x & 3;
+  // up form: the up channels [xc, cin) of an item's input tile (buffer b)
+  // from its low-resolution tile: low-tile pixel (ly, lx) gives input-tile
+  // pixels (2·ly + a, 2·lx + b), parity 2a + b; zero outside the image
+  auto up_channels = [&](int item, int b) {
+    int m, oy, ox;
+    origin(item, m, oy, ox);
+    const float* affu = reinterpret_cast<const float*>(smem + L.affu);
+    const int* ucol = reinterpret_cast<const int*>(smem + L.ucol);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(tin(b));
+    const int ly0 = oy / 2 - 1, lx0 = ox / 2 - 1;
+    conv_gemm<NTU>(reinterpret_cast<const uint32_t*>(tlow(b)),
+                  reinterpret_cast<const int2*>(smem + L.rowu), lrows,
+                  reinterpret_cast<const int*>(smem + L.offu), L.kcu,
+                  reinterpret_cast<const uint2*>(smem + L.wbu),
+                  [&](int g, int r0, int yx0, int yx1, float (&acc)[NTU][4]) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h, yx = h ? yx1 : yx0;
+        if (r >= lrows) continue;
+        const int ly = yx >> 16, lx = yx & 0xffff;
+        const bool in = ly0 + ly >= 0 && ly0 + ly < hl && lx0 + lx >= 0 && lx0 + lx < wl;
+#pragma unroll
+        for (int n = 0; n < NTU; ++n) {
+          const int col = n * 8 + 2 * t, e = ucol[col], par = g * L.pp + (e >> 16), co = e & 0xffff;
+          if (e < 0 || par >= 4) continue;
+          const int p = (2 * ly + (par >> 1)) * L.iw + 2 * lx + (par & 1);
+          dst[p * (L.s1 / 2) + (xc + co) / 2] =
+              in ? pack_f32(acc[n][2 * h] + affu[col], acc[n][2 * h + 1] + affu[col + 1]) : 0u;
+        }
+      }
+    }, L.passes);
+  };
+
   for (int it = 0; item < items; ++it, item += gridDim.x) {
     const int next = item + gridDim.x;
     if (vec) {
-      if (next < items) stage_async(next, tin((it + 1) & 1));
+      if (next < items) stage_item(next, (it + 1) & 1);
       cp_async_commit();
       cp_async_wait<1>();  // this item's group has landed; the next may fly
     } else if (next < items) {
@@ -539,12 +718,16 @@ double_conv_kernel_bf16_mma(const bf16* __restrict__ x, const bf16* __restrict__
     __syncthreads();
     int m, oy, ox;
     origin(item, m, oy, ox);
+    if constexpr (UP) {
+      up_channels(item, it & 1);
+      __syncthreads();
+    }
 
     // conv1 + affine + ReLU over the tile and its 1-pixel halo, rounded
     // to bf16 (unet_pallas.py:70); zero outside the image and in the pad
     // channels [C, Cp2)
     conv_gemm<NT>(reinterpret_cast<const uint32_t*>(tin(it & 1)), row1, mrows, off1, L.kc1, wb1,
-                  [&](int r0, int yx0, int yx1, float (&acc)[NT][4]) {
+                  [&](int, int r0, int yx0, int yx1, float (&acc)[NT][4]) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = r0 + 8 * h, yx = h ? yx1 : yx0;
@@ -572,7 +755,7 @@ double_conv_kernel_bf16_mma(const bf16* __restrict__ x, const bf16* __restrict__
     // conv2 + affine + ReLU over the tile, channel pairs to device memory
     bf16* om = out + (size_t)m * H * W * c;
     conv_gemm<NT>(mid, row2, orows, off2, L.kc2, wb2,
-                  [&](int r0, int yx0, int yx1, float (&acc)[NT][4]) {
+                  [&](int, int r0, int yx0, int yx1, float (&acc)[NT][4]) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int r = r0 + 8 * h, yx = h ? yx1 : yx0;
@@ -597,30 +780,30 @@ double_conv_kernel_bf16_mma(const bf16* __restrict__ x, const bf16* __restrict__
   cp_async_wait<0>();
 }
 
-template <int NT>
+template <int NT, bool UP>
 cudaError_t bf16_attr(int smem) {
-  return cudaFuncSetAttribute(double_conv_kernel_bf16_mma<NT>,
+  return cudaFuncSetAttribute(double_conv_kernel_bf16_mma<NT, UP>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-template <int NT>
+template <int NT, bool UP>
 cudaError_t bf16_occupancy(int smem, int* per_sm) {
-  cudaError_t err = bf16_attr<NT>(smem);
+  cudaError_t err = bf16_attr<NT, UP>(smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, double_conv_kernel_bf16_mma<NT>,
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, double_conv_kernel_bf16_mma<NT, UP>,
                                                        kThreads, smem);
 }
 
-template <int NT>
+template <int NT, bool UP>
 cudaError_t launch_bf16(const void* x, const void* w1, const float* s1, const float* b1,
                         const void* w2, const float* s2, const float* b2, void* out, int M,
                         int H, int W, int cin, int c, int th, int tw, int smem, int blocks,
-                        cudaStream_t stream) {
-  cudaError_t err = bf16_attr<NT>(smem);
+                        UpArgs up, cudaStream_t stream) {
+  cudaError_t err = bf16_attr<NT, UP>(smem);
   if (err != cudaSuccess) return err;
-  double_conv_kernel_bf16_mma<NT><<<blocks, kThreads, smem, stream>>>(
+  double_conv_kernel_bf16_mma<NT, UP><<<blocks, kThreads, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w1), s1, b1,
-      static_cast<const bf16*>(w2), s2, b2, static_cast<bf16*>(out), M, H, W, cin, c, th, tw);
+      static_cast<const bf16*>(w2), s2, b2, static_cast<bf16*>(out), M, H, W, cin, c, th, tw, up);
   return cudaGetLastError();
 }
 
@@ -635,19 +818,32 @@ cudaError_t dispatch_f32(const void* x, const void* w1, const float* s1, const f
   return launch<float, 4>(x, w1, s1, b1, w2, s2, b2, out, M, H, W, cin, c, th, tw, smem, stream);
 }
 
+template <bool UP>
 cudaError_t dispatch_bf16(const void* x, const void* w1, const float* s1, const float* b1,
                           const void* w2, const float* s2, const float* b2, void* out,
                           int M, int H, int W, int cin, int c, int th, int tw, int smem,
-                          int blocks, cudaStream_t stream) {
-#define DC_LAUNCH(NT)                                                                   \
-  case NT:                                                                              \
-    return launch_bf16<NT>(x, w1, s1, b1, w2, s2, b2, out, M, H, W, cin, c, th, tw, smem, \
-                           blocks, stream);
+                          int blocks, UpArgs up, cudaStream_t stream) {
+#define DC_LAUNCH(NT)                                                                       \
+  case NT:                                                                                  \
+    return launch_bf16<NT, UP>(x, w1, s1, b1, w2, s2, b2, out, M, H, W, cin, c, th, tw, smem, \
+                               blocks, up, stream);
   switch (n_tiles(c)) {
     DC_LAUNCH(1) DC_LAUNCH(2) DC_LAUNCH(4) DC_LAUNCH(8) DC_LAUNCH(16)
     default: return cudaErrorInvalidValue;
   }
 #undef DC_LAUNCH
+}
+
+template <bool UP>
+cudaError_t occupancy(int c, int smem, int* per_sm) {
+  switch (n_tiles(c)) {
+    case 1: return bf16_occupancy<1, UP>(smem, per_sm);
+    case 2: return bf16_occupancy<2, UP>(smem, per_sm);
+    case 4: return bf16_occupancy<4, UP>(smem, per_sm);
+    case 8: return bf16_occupancy<8, UP>(smem, per_sm);
+    case 16: return bf16_occupancy<16, UP>(smem, per_sm);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -673,27 +869,44 @@ int double_conv_launch(const void* x, const void* w1, const void* s1, const void
   if (dtype == 0)
     return dispatch_f32(x, w1, f1, g1, w2, f2, g2, out, M, H, W, cin, c, th, tw, smem, st);
   if (dtype == 1) {
-    if (blocks <= 0 || n_tiles(c) > kMaxNTiles || bf16_layout(cin, c, th, tw).bytes != smem)
+    if (blocks <= 0 || n_tiles(c) > kMaxNTiles || bf16_layout(cin, c, th, tw, 0).bytes != smem)
       return cudaErrorInvalidValue;
-    return dispatch_bf16(x, w1, f1, g1, w2, f2, g2, out, M, H, W, cin, c, th, tw, smem,
-                         blocks, st);
+    return dispatch_bf16<false>(x, w1, f1, g1, w2, f2, g2, out, M, H, W, cin, c, th, tw, smem,
+                                blocks, UpArgs{nullptr, nullptr, nullptr, 0}, st);
   }
   return cudaErrorInvalidValue;
 }
 
-// Blocks of the bf16 kernel for C output channels and `smem` dynamic
-// shared bytes that one SM holds at once (cudaOccupancyMaxActiveBlocks-
-// PerMultiprocessor), or minus a cudaError_t code.
-int double_conv_bf16_blocks_per_sm(int c, int smem) {
+// The up form, bf16 only: out = DoubleConv(concat[skip, ConvTranspose(low)])
+// with skip [M, H, W, cs], low [M, H/2, W/2, cl], wt [cl, C, 2, 2] and bt
+// [C] (F.conv_transpose2d's weight and bias), w1 [3, 3, cs + C, C]. H, W,
+// th and tw even (each tile starts on a 2 × 2 block), cs and cl multiples
+// of 4 (cp.async), smem equal to bf16_layout's for cl.
+int double_conv_up_launch(const void* skip, const void* low, const void* wt, const void* bt,
+                          const void* w1, const void* s1, const void* b1, const void* w2,
+                          const void* s2, const void* b2, void* out, int M, int H, int W,
+                          int cs, int cl, int c, int th, int tw, int smem, int blocks,
+                          void* stream) {
+  if (M <= 0 || H <= 0 || W <= 0 || H % 2 || W % 2 || cs <= 0 || cs % 4 || cl <= 0 ||
+      cl % 4 || c <= 0 || c % 4 || th <= 0 || tw <= 0 || th % 2 || tw % 2 || blocks <= 0 ||
+      n_tiles(c) > kMaxNTiles || bf16_layout(cs + c, c, th, tw, cl).bytes != smem)
+    return cudaErrorInvalidValue;
+  const UpArgs up{static_cast<const bf16*>(low), static_cast<const bf16*>(wt),
+                  static_cast<const bf16*>(bt), cl};
+  return dispatch_bf16<true>(skip, w1, static_cast<const float*>(s1),
+                             static_cast<const float*>(b1), w2, static_cast<const float*>(s2),
+                             static_cast<const float*>(b2), out, M, H, W, cs + c, c, th, tw,
+                             smem, blocks, up, static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the bf16 kernel (up = 1: its up form) for C output channels
+// and `smem` dynamic shared bytes that one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus a cudaError_t
+// code.
+int double_conv_bf16_blocks_per_sm(int c, int smem, int up) {
   int per_sm = 0;
-  cudaError_t err = cudaErrorInvalidValue;
-  switch (n_tiles(c)) {
-    case 1: err = bf16_occupancy<1>(smem, &per_sm); break;
-    case 2: err = bf16_occupancy<2>(smem, &per_sm); break;
-    case 4: err = bf16_occupancy<4>(smem, &per_sm); break;
-    case 8: err = bf16_occupancy<8>(smem, &per_sm); break;
-    case 16: err = bf16_occupancy<16>(smem, &per_sm); break;
-  }
+  const cudaError_t err = up ? occupancy<true>(c, smem, &per_sm)
+                             : occupancy<false>(c, smem, &per_sm);
   return err == cudaSuccess ? per_sm : -static_cast<int>(err);
 }
 

@@ -21,6 +21,12 @@ fused_double_conv is the wrapper: on a CUDA tensor it launches the kernel
 or raises, with gradients from autograd of the plain version; on a CPU
 tensor it runs double_conv_reference, the plain PyTorch version the
 kernel is held against. kernel_takes says which shapes the kernel takes.
+
+fused_up_double_conv is the bf16 body's up form, a U-Net up level in one
+launch (the serving engine's expansion): ConvTranspose 2×2 stride 2 of the
+low-resolution map, concat with the skip, DoubleConv, the upsampled half
+of each input tile built in shared memory. Forward only; its plain
+version is up_double_conv_reference, up_form_takes its route.
 """
 
 from __future__ import annotations
@@ -101,7 +107,8 @@ class Bf16Plan(NamedTuple):
     pixels per GEMM row (2 at C = 4), so K = 3·(2 + px)·cp taps ×
     channels in kc1/kc2 chunks of 16; npad: C padded for N, whose px·npad
     columns are 8 × a power of two; smem: dynamic shared bytes; items:
-    (image, tile) work items."""
+    (image, tile) work items; cl: the low-resolution map's channels of
+    the up form, 0 for the plain form."""
 
     th: int
     tw: int
@@ -113,6 +120,7 @@ class Bf16Plan(NamedTuple):
     kc2: int
     smem: int
     items: int
+    cl: int = 0
 
 
 def _k_pad(ch: int) -> int:
@@ -137,16 +145,22 @@ def _k_chunks(cp: int, px: int) -> int:
     return -(-3 * (2 + px) * cp // 16)
 
 
-def _bf16_smem(cin: int, c: int, th: int, tw: int) -> int:
+def _pix_stride(cp: int) -> int:
+    """bf16 a pixel of a shared tile of cp channels."""
+    return cp if cp < 16 else cp + 8
+
+
+def _bf16_smem(cin: int, c: int, th: int, tw: int, cl: int = 0) -> int:
     """Bytes of the bf16 kernel's shared memory, region by region as in
-    bf16_layout (each region a multiple of 16 bytes)."""
+    bf16_layout (each region a multiple of 16 bytes); cl > 0: the up form's
+    besides."""
     up16 = lambda b: -(-b // 16) * 16
     up32 = lambda n: -(-n // 32) * 32
     cp1, cp2, nt = _k_pad(cin), _k_pad(c), _n_tiles(c)
-    s1, s2 = (cp if cp < 16 else cp + 8 for cp in (cp1, cp2))
+    s1, s2 = _pix_stride(cp1), _pix_stride(cp2)
     px = _pixels_per_row(c, tw)
     kc1, kc2 = (_k_chunks(cp, px) for cp in (cp1, cp2))
-    return (
+    plain = (
         (kc1 + kc2) * nt * 256  # w1, w2 as packed B fragments
         + 4 * 8 * nt * 4  # s1 b1 s2 b2
         + 32 * (kc1 + kc2)  # A offsets per K pair
@@ -155,29 +169,60 @@ def _bf16_smem(cin: int, c: int, th: int, tw: int) -> int:
         + 2 * up16((th + 4) * (tw + 4) * s1 * 2)  # input tile ×2, 2-pixel halo
         + up16((th + 2) * (tw + 2) * s2 * 2)  # intermediate, 1-pixel halo
     )
+    if not cl:
+        return plain
+    cpl, pixels = _k_pad(cl), (th // 2 + 2) * (tw // 2 + 2)  # the low-resolution tile
+    kcu, ntu, passes = -(-cpl // 16), *_up_tiling(c)
+    return plain + (
+        passes * kcu * ntu * 256  # ConvTranspose weights, packed by pass
+        + 2 * 8 * ntu * 4  # its bias by column, and each column's parity and channel
+        + 32 * kcu  # A offsets
+        + up16(4 * pixels)  # low-tile pixel table
+        + 8 * up32(pixels)  # GEMM row table
+        + 2 * up16(pixels * _pix_stride(cpl) * 2)  # low-resolution tile ×2
+    )
+
+
+def _up_tiling(c: int) -> Tuple[int, int]:
+    """(n-tiles, passes) of the up form's ConvTranspose GEMM over the
+    low-resolution tile (up_n_tiles): the DoubleConv's one n-tile at C ≤ 8,
+    else 4 × its n-tiles (at most 16); 8·n columns hold as many of the 4
+    parities' C channels as fit."""
+    nt = _n_tiles(c)
+    ntu = 1 if nt == 1 else min(16, 4 * nt)
+    return ntu, -(-4 // min(4, 8 * ntu // c))
 
 
 @functools.lru_cache(maxsize=None)
-def plan_bf16(m: int, h: int, w: int, cin: int, c: int) -> Bf16Plan:
+def plan_bf16(m: int, h: int, w: int, cin: int, c: int, cl: int = 0) -> Bf16Plan:
     """The largest output tile (up to 32×32; the whole image at 8² and
     16²) of at least 16×16 pixels of which two blocks fit an SM, else the
     largest that fits one (_BF16_TILES), among those whose input tile,
     where Cin % 4 != 0, the block's registers hold. Raises ValueError for
     a shape the bf16 kernel does not take: C not a multiple of 4, C > 128,
-    or no fit."""
+    or no fit.
+
+    cl > 0 plans the up form (fused_up_double_conv): the input is the skip
+    of Cin − C channels at h × w beside a low-resolution map of cl
+    channels at h/2 × w/2, whose ConvTranspose gives the other C. It also
+    needs h and w even and Cin − C and cl multiples of 4 (cp.async)."""
     if c <= 0 or c % 4:
         raise ValueError(f"fused_double_conv: C={c} must be a multiple of 4")
     nt = _n_tiles(c)
     if nt > _MAX_NTILES:
         raise ValueError(f"fused_double_conv: bf16 takes C ≤ {8 * _MAX_NTILES}, got C={c}")
+    if cl and (h % 2 or w % 2 or cin <= c or (cin - c) % 4 or cl % 4):
+        raise ValueError(
+            f"fused_up_double_conv: takes an even h × w ({h} × {w}) and skip and "
+            f"low-resolution channels that are multiples of 4 (got {cin - c} and {cl})")
     cp1, cp2 = _k_pad(cin), _k_pad(c)
     fits = []
     for th, tw in _BF16_TILES:
         th, tw = min(th, h), min(tw, w)
-        smem = _bf16_smem(cin, c, th, tw)
+        smem = _bf16_smem(cin, c, th, tw, cl)
         # without cp.async (Cin % 4 != 0) a thread holds its share of the
         # next input tile in _PRE_WORDS registers
-        held = cin % 4 == 0 or (th + 4) * (tw + 4) * cp1 // 2 <= _PRE_WORDS * 256
+        held = cl or cin % 4 == 0 or (th + 4) * (tw + 4) * cp1 // 2 <= _PRE_WORDS * 256
         if smem <= _SMEM_BUDGET and held:
             fits.append((th, tw, smem))
     if fits:
@@ -185,7 +230,7 @@ def plan_bf16(m: int, h: int, w: int, cin: int, c: int) -> Bf16Plan:
         th, tw, smem = (two or fits)[0]
         px = _pixels_per_row(c, tw)
         return Bf16Plan(th, tw, cp1, cp2, 8 * nt // px, px, _k_chunks(cp1, px),
-                        _k_chunks(cp2, px), smem, m * -(-h // th) * -(-w // tw))
+                        _k_chunks(cp2, px), smem, m * -(-h // th) * -(-w // tw), cl)
     raise ValueError(
         f"fused_double_conv: bf16 DoubleConv with Cin={cin}, C={c} does not fit one "
         "block's shared memory at any tile size"
@@ -199,8 +244,23 @@ def bf16_grid(items: int, sms: int, per_sm: int) -> int:
     return min(items, sms * per_sm)
 
 
-# (device index, C, smem) → blocks per SM, asked of the CUDA runtime once
-_PER_SM: Dict[Tuple[int, int, int], int] = {}
+# (device index, C, smem, up form) → blocks per SM, asked of the CUDA
+# runtime once
+_PER_SM: Dict[Tuple[int, int, int, bool], int] = {}
+
+
+def _persistent_grid(plan: Bf16Plan, c: int, device: torch.device) -> int:
+    """The bf16 kernel's grid for a plan: its work items, at most the
+    blocks the card holds at once."""
+    key = (device.index, c, plan.smem, plan.cl > 0)
+    if key not in _PER_SM:
+        lib = _lib()
+        per_sm = lib.double_conv_bf16_blocks_per_sm(c, plan.smem, int(plan.cl > 0))
+        if per_sm < 0:
+            _build.check(lib, -per_sm, "double_conv occupancy")
+        _PER_SM[key] = per_sm
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return bf16_grid(plan.items, sms, _PER_SM[key])
 
 
 def launch_config(m: int, h: int, w: int, cin: int, c: int, dtype: torch.dtype,
@@ -212,15 +272,7 @@ def launch_config(m: int, h: int, w: int, cin: int, c: int, dtype: torch.dtype,
         th, tw, smem = pick_tile(h, w, cin, c)
         return th, tw, smem, m * -(-h // th) * -(-w // tw)
     plan = plan_bf16(m, h, w, cin, c)
-    key = (device.index, c, plan.smem)
-    if key not in _PER_SM:
-        lib = _lib()
-        per_sm = lib.double_conv_bf16_blocks_per_sm(c, plan.smem)
-        if per_sm < 0:
-            _build.check(lib, -per_sm, "double_conv occupancy")
-        _PER_SM[key] = per_sm
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return plan.th, plan.tw, plan.smem, bf16_grid(plan.items, sms, _PER_SM[key])
+    return plan.th, plan.tw, plan.smem, _persistent_grid(plan, c, device)
 
 
 def kernel_takes(cin: int, c: int, dtype: torch.dtype) -> bool:
@@ -241,6 +293,30 @@ def kernel_takes(cin: int, c: int, dtype: torch.dtype) -> bool:
     return True
 
 
+def _check_operands(what: str, x, named) -> None:
+    """Raise unless each (name, tensor, shape, dtype) of `named` is that
+    contiguous tensor on x's device."""
+    for name, t, shape, dt in named:
+        if tuple(t.shape) != shape or t.dtype != dt or t.device != x.device:
+            raise ValueError(
+                f"{what}: {name} must be {dt} {shape} on {x.device}, "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _conv_operands(cin, c, dtype, w1, s1, b1, w2, s2, b2):
+    return (
+        ("w1", w1, (3, 3, cin, c), dtype),
+        ("w2", w2, (3, 3, c, c), dtype),
+        ("s1", s1, (c,), torch.float32),
+        ("b1", b1, (c,), torch.float32),
+        ("s2", s2, (c,), torch.float32),
+        ("b2", b2, (c,), torch.float32),
+    )
+
+
 def _launch(x, w1, s1, b1, w2, s2, b2):
     """The kernel on CUDA tensors, or raise."""
     if x.device.type != "cuda":
@@ -251,21 +327,7 @@ def _launch(x, w1, s1, b1, w2, s2, b2):
     c = w1.shape[3]
     if c % 4:
         raise ValueError(f"fused_double_conv: C={c} must be a multiple of 4")
-    for name, t, shape, dt in (
-        ("w1", w1, (3, 3, cin, c), x.dtype),
-        ("w2", w2, (3, 3, c, c), x.dtype),
-        ("s1", s1, (c,), torch.float32),
-        ("b1", b1, (c,), torch.float32),
-        ("s2", s2, (c,), torch.float32),
-        ("b2", b2, (c,), torch.float32),
-    ):
-        if tuple(t.shape) != shape or t.dtype != dt or t.device != x.device:
-            raise ValueError(
-                f"fused_double_conv: {name} must be {dt} {shape} on {x.device}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"fused_double_conv: {name} must be contiguous")
+    _check_operands("fused_double_conv", x, _conv_operands(cin, c, x.dtype, w1, s1, b1, w2, s2, b2))
     if not x.is_contiguous():
         raise ValueError("fused_double_conv: x must be contiguous (NHWC)")
     if x.dtype == torch.bfloat16 and x.data_ptr() % 16:
@@ -321,6 +383,80 @@ def fused_double_conv(x, w1, s1, b1, w2, s2, b2):
 
 
 fused_double_conv.launches = 0
+fused_double_conv.up_launches = 0  # of them, launches of the up form
+
+
+def up_double_conv_reference(skip, low, wt, bt, w1, s1, b1, w2, s2, b2):
+    """The U-Net up level as plain PyTorch ops: ConvTranspose 2×2 stride 2
+    of low [M, H/2, W/2, Cl] (wt [Cl, C, 2, 2], bt [C]: F.conv_transpose2d's
+    weight and bias), concat [skip, that] on channels, DoubleConv."""
+    y = F.conv_transpose2d(low.permute(0, 3, 1, 2), wt, bt, stride=2).permute(0, 2, 3, 1)
+    return double_conv_reference(torch.cat([skip, y], -1), w1, s1, b1, w2, s2, b2)
+
+
+def up_form_takes(skip, low, wt, w1) -> bool:
+    """Whether an up level goes to fused_up_double_conv: the one test of
+    its route. bf16; the skip [M, H, W, Cs] exactly twice the
+    low-resolution map [M, H/2, W/2, Cl] in H and W, with no pad; the
+    ConvTranspose (wt [Cl, C, 2, 2]) giving the C channels the DoubleConv
+    (w1 [3, 3, Cs + C, C]) maps to; and a plan for the shape (plan_bf16
+    with cl). The wrapper raises on what this refuses."""
+    m, h, w, cs = skip.shape
+    cl, c = wt.shape[0], wt.shape[1]
+    if (skip.dtype != torch.bfloat16 or tuple(low.shape) != (m, h // 2, w // 2, cl)
+            or h % 2 or w % 2 or tuple(w1.shape[2:]) != (cs + c, c)):
+        return False
+    try:
+        plan_bf16(m, h, w, cs + c, c, cl)
+    except ValueError:
+        return False
+    return True
+
+
+def fused_up_double_conv(skip, low, wt, bt, w1, s1, b1, w2, s2, b2):
+    """The U-Net up level, skip [M, H, W, Cs] and low [M, H/2, W/2, Cl] →
+    [M, H, W, C]: DoubleConv(concat[skip, ConvTranspose(low)]) with the
+    ConvTranspose (wt [Cl, C, 2, 2], bt [C], F.conv_transpose2d's layout)
+    built inside kernel 1's bf16 body, so neither the upsampled map nor
+    the concat is written. Forward only (serving). On a CPU tensor it runs
+    up_double_conv_reference; on the card it launches the kernel or
+    raises. Counted in fused_double_conv.launches and .up_launches."""
+    args = (skip, low, wt, bt, w1, s1, b1, w2, s2, b2)
+    if skip.device.type == "cpu":
+        return up_double_conv_reference(*args)
+    if torch.is_grad_enabled() and any(v.requires_grad for v in args):
+        raise ValueError("fused_up_double_conv: forward only (serving); train through the "
+                         "module's ConvTranspose and fused_double_conv")
+    if skip.device.type != "cuda":
+        raise ValueError(f"fused_up_double_conv: unsupported device {skip.device}")
+    if skip.dtype != torch.bfloat16:
+        raise TypeError(f"fused_up_double_conv: takes bfloat16, got {skip.dtype}")
+    m, h, w, cs = skip.shape
+    cl, c = wt.shape[0], w1.shape[3]
+    _check_operands("fused_up_double_conv", skip, (
+        ("low", low, (m, h // 2, w // 2, cl), skip.dtype),
+        ("wt", wt, (cl, c, 2, 2), skip.dtype),
+        ("bt", bt, (c,), skip.dtype),
+        *_conv_operands(cs + c, c, skip.dtype, w1, s1, b1, w2, s2, b2),
+    ))
+    if not skip.is_contiguous() or skip.data_ptr() % 16 or low.data_ptr() % 16:
+        raise ValueError("fused_up_double_conv: skip and low must be contiguous and 16-byte "
+                         "aligned (cp.async)")
+    plan = plan_bf16(m, h, w, cs + c, c, cl)
+    blocks = _persistent_grid(plan, c, skip.device)
+    lib = _lib()
+    out = torch.empty((m, h, w, c), dtype=skip.dtype, device=skip.device)
+    with torch.cuda.device(skip.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.double_conv_up_launch(
+            skip.data_ptr(), low.data_ptr(), wt.data_ptr(), bt.data_ptr(), w1.data_ptr(),
+            s1.data_ptr(), b1.data_ptr(), w2.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), m, h, w, cs, cl, c, plan.th, plan.tw, plan.smem, blocks, stream,
+        )
+    _build.check(lib, code, "double_conv up form")
+    fused_double_conv.launches += 1
+    fused_double_conv.up_launches += 1
+    return out
 
 
 def _lib() -> ctypes.CDLL:
@@ -329,7 +465,9 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.double_conv_launch.argtypes = [p] * 8 + [i] * 10 + [p]
         lib.double_conv_launch.restype = i
-        lib.double_conv_bf16_blocks_per_sm.argtypes = [i, i]
+        lib.double_conv_up_launch.argtypes = [p] * 11 + [i] * 10 + [p]
+        lib.double_conv_up_launch.restype = i
+        lib.double_conv_bf16_blocks_per_sm.argtypes = [i, i, i]
         lib.double_conv_bf16_blocks_per_sm.restype = i
     return lib
 
@@ -343,3 +481,17 @@ def min_bytes(m: int, h: int, w: int, cin: int, c: int, itemsize: int) -> int:
     """Bytes one call must move: x and the weights read once, out written
     once, the float32 affine vectors read once."""
     return itemsize * (m * h * w * (cin + c) + 9 * c * (cin + c)) + 4 * 4 * c
+
+
+def up_flops(m: int, h: int, w: int, cs: int, cl: int, c: int) -> int:
+    """Multiply-adds ×2 of one up-form call: the ConvTranspose (Cl → C at
+    each output pixel) and the DoubleConv over the Cs + C concat."""
+    return 2 * m * h * w * cl * c + flops(m, h, w, cs + c, c)
+
+
+def up_min_bytes(m: int, h: int, w: int, cs: int, cl: int, c: int, itemsize: int) -> int:
+    """Bytes one up-form call must move: the skip, the low-resolution map
+    and the weights read once, out written once, the float32 affine
+    vectors read once; no concat."""
+    maps = m * h * w * (cs + c) + m * (h // 2) * (w // 2) * cl
+    return itemsize * (maps + 4 * cl * c + c + 9 * c * (cs + 2 * c)) + 4 * 4 * c

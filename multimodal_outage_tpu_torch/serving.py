@@ -27,7 +27,13 @@ and prepares the st-GNN's weights and supports, once. The forward:
                       the attentions through scaled_dot_product_attention
   bottleneck decoder  2 Dense + ReLU, float32
   U-Net expansion     4 × (ConvTranspose 2×2 → pad-to-match → concat skip →
-                      DoubleConv), then the 1×1 head
+                      DoubleConv), then the 1×1 head. A level that runs
+                      kernel 1 takes its up form (fused_up_double_conv,
+                      one launch that builds the upsampled half of its
+                      input tile on chip) where up_form_takes says so:
+                      bf16, the skip exactly twice its input, a plan for
+                      the shape; the rest run the four ops (up_levels:
+                      which levels took it in the last forward)
 
 Spans (core/tracing.py, recorded only under a torch profiler): each
 single-device forward is an engine.forward root over engine.contraction,
@@ -35,7 +41,8 @@ engine.st_gnn and engine.expansion, the three timed on the card; the
 root's own time is the bottleneck Dense layers and Date2Vec.
 
 Max-pool, Dense, ConvTranspose, concat and the 1×1 head are the ops the
-JAX engine leaves to XLA; here they stay PyTorch ops. Every batch size
+JAX engine leaves to XLA; here they stay PyTorch ops, but for the
+ConvTranspose and concat of the up levels kernel 1 absorbs. Every batch size
 takes the same path: the JAX engine's B=1-only rule for the DCRNN kernel
 (its serving.py:393-399) is a TPU measurement and is not carried over.
 
@@ -78,7 +85,9 @@ from multimodal_outage_tpu_torch.ops.double_conv import (
     double_conv_reference,
     fold_batchnorm,
     fused_double_conv,
+    fused_up_double_conv,
     kernel_takes,
+    up_form_takes,
 )
 from multimodal_outage_tpu_torch.ops.gwnet_stack import (
     adaptive_supports,
@@ -227,6 +236,8 @@ class ServingModel:
         self._outc = (cast(torch.as_tensor(oc["kernel"])[0, 0]), cast(oc["bias"]))
         # the DoubleConv function of each level, contraction then expansion
         self.double_conv_fns = tuple(fn for fn, _ in self._down + [u[2] for u in self._up])
+        # per up level, whether the last forward ran it as kernel 1's up form
+        self.up_levels = ()
 
     def _mesh_engine(self, cfg: ModelConfig, variables, supports, horizon: int, mesh) -> None:
         """The module path on a mesh: ModifiedUNet in eval mode at the
@@ -250,7 +261,7 @@ class ServingModel:
         self._module = model.to(self.device).eval()
         self._supports = (None if supports is None
                           else torch.as_tensor(supports).to(self.device, torch.float32))
-        self.double_conv_fns = ()
+        self.double_conv_fns = self.up_levels = ()
 
     def forward_local(self, x: torch.Tensor, date_feats: torch.Tensor) -> torch.Tensor:
         """A mesh engine's forward of this rank's part of a request (its
@@ -362,14 +373,21 @@ class ServingModel:
             y = d.reshape(m, grid, grid, -1).to(dtype)
 
             with tracing.span("engine.expansion", device=card):
+                took = []
                 for i, (wt, bt, conv_args) in enumerate(self._up, start=1):
+                    skip = skips[-i]
+                    took.append(conv_args[0] is fused_double_conv
+                                and up_form_takes(skip, y, wt, conv_args[1][0]))
+                    if took[-1]:
+                        y = fused_up_double_conv(skip, y, wt, bt, *conv_args[1])
+                        continue
                     y = F.conv_transpose2d(y.permute(0, 3, 1, 2), wt, bt,
                                            stride=2).permute(0, 2, 3, 1)
-                    skip = skips[-i]
                     dh, dw = skip.shape[1] - y.shape[1], skip.shape[2] - y.shape[2]
                     if dh or dw:
                         y = F.pad(y, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
                     y = dc(torch.cat([skip, y], -1).contiguous(), conv_args)
+                self.up_levels = tuple(took)
                 w, bias = self._outc
                 y = y @ w + bias
                 return y.reshape(b, n, t, hh, ww, -1).float()

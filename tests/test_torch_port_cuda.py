@@ -11,11 +11,14 @@ the flip propagates, so the kernel is held to the plain version's own
 accuracy against the same computation in float32 (chip_smoke.py states
 the same bar)."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
-from multimodal_outage_tpu_torch import weights
+from multimodal_outage_tpu_torch import serving, weights
 from multimodal_outage_tpu_torch.core.config import DCRNNConfig, GWNetConfig, ModelConfig
 from multimodal_outage_tpu_torch.data.adjacency import model_supports, n_static_supports
 from multimodal_outage_tpu_torch.ops import dcrnn_stack as dsm
@@ -270,6 +273,112 @@ def test_engine_kernels_match_plain_engine(cuda, dtype):
     f32 = ModelConfig(compute_dtype="float32")
     truth = ServingModel(f32, var, sup, horizon=t, device="cuda", reference=True)(x, feats)
     _assert_kernel_matches(got, want, want if dtype == "float32" else truth)
+
+
+def _up_form_args(m, h, w, cl, c, device, seed):
+    """skip, low, the ConvTranspose's weight and bias, and the DoubleConv's
+    operands of an up level (DoubleConv 2C → C), bf16, made on the device
+    from a seed. The ConvTranspose bias is large (~4), so a bias written
+    into the concat's SAME padding moves every border pixel."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *s, k=1.0, dt=torch.bfloat16: (
+        torch.randn(*s, generator=g, device=device) * k).to(dt)
+    cin = 2 * c
+    return (
+        r(m, h, w, c), r(m, h // 2, w // 2, cl), r(cl, c, 2, 2, k=cl ** -0.5),
+        r(c, k=0.5) + 4.0,
+        r(3, 3, cin, c, k=(2 / (9 * cin)) ** 0.5),
+        r(c, dt=torch.float32).abs() + 0.5, r(c, k=0.1, dt=torch.float32),
+        r(3, 3, c, c, k=(2 / (9 * c)) ** 0.5),
+        r(c, dt=torch.float32).abs() + 0.5, r(c, k=0.1, dt=torch.float32),
+    )
+
+
+def _four_ops(skip, low, wt, bt, *conv):
+    """ConvTranspose → concat → kernel 1, as the engine runs an up level
+    the up form does not take."""
+    y = F.conv_transpose2d(low.permute(0, 3, 1, 2), wt, bt, stride=2).permute(0, 2, 3, 1)
+    return dcm.fused_double_conv(torch.cat([skip, y], -1).contiguous(), *conv)
+
+
+# (H, W, Cl, C): the four up levels at the *_fl67 widths, and each at a
+# size its plan's tiles do not divide
+UP_SHAPES = [(16, 16, 64, 32), (32, 32, 32, 16), (64, 64, 16, 8), (128, 128, 8, 4)]
+UP_RAGGED = [(20, 12, 64, 32), (36, 20, 32, 16), (40, 52, 16, 8), (72, 40, 8, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,h,w,cl,c",
+                         [(m, *s) for m in (469, 7504) for s in UP_SHAPES]
+                         + [(5, *s) for s in UP_RAGGED])
+def test_up_form_matches_the_four_ops(cuda, m, h, w, cl, c):
+    """Kernel 1's up form against ConvTranspose → concat → kernel 1, both
+    held to the float32 computation of the same level: the up form rounds
+    its upsampled half to bf16 once, so it is held to the four ops' own
+    error (the bf16 bar)."""
+    args = _up_form_args(m, h, w, cl, c, cuda, seed=h + m)
+    before = (dcm.fused_double_conv.launches, dcm.fused_double_conv.up_launches)
+    got = dcm.fused_up_double_conv(*args)
+    torch.cuda.synchronize()
+    assert (dcm.fused_double_conv.launches - before[0],
+            dcm.fused_double_conv.up_launches - before[1]) == (1, 1)
+    want = _four_ops(*args)
+    truth = dcm.up_double_conv_reference(*(a.float() for a in args))
+    _assert_kernel_matches(got, want, truth)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("st_gnn", ["gwnet", "dcrnn", "gman"])
+def test_engine_up_form_matches_the_four_ops(cuda, st_gnn, monkeypatch):
+    """A B=1 forecast at each configuration's widths (67 counties, 7 days,
+    128²): the engine takes the up form at all four up levels (9 kernel 1
+    launches a forward, 4 of them up-form) and is held, against the float32
+    plain engine, to the same engine with the route refused at every level,
+    which runs each through the four ops."""
+    cfg = ModelConfig(st_gnn=st_gnn)
+    n, t, h = 67, 7, 128
+    var = weights.init_variables(cfg, t, n, seed=0, image_size=h)
+    sup = torch.from_numpy(model_supports(cfg, n))
+    x = torch.from_numpy(
+        np.random.default_rng(2).standard_normal((1, n, t, h, h, 1)).astype(np.float32)).to(cuda)
+    feats = torch.tensor([0, 0, 0, 2022, 9, 26], dtype=torch.float32).repeat(1, t, 1).to(cuda)
+    engine = ServingModel(cfg, var, sup, horizon=t, device="cuda")
+    grew, out, took = [], [], []
+    for route in (serving.up_form_takes, lambda *a: False):
+        monkeypatch.setattr(serving, "up_form_takes", route)
+        before = (dcm.fused_double_conv.launches, dcm.fused_double_conv.up_launches)
+        out.append(engine(x, feats))
+        torch.cuda.synchronize()
+        grew.append((dcm.fused_double_conv.launches - before[0],
+                     dcm.fused_double_conv.up_launches - before[1]))
+        took.append(engine.up_levels)
+    assert grew == [(9, 4), (9, 0)]
+    assert took == [(True,) * 4, (False,) * 4]
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    truth = ServingModel(f32, var, sup, horizon=t, device="cuda", reference=True)(x, feats)
+    _assert_kernel_matches(out[0], out[1], truth)
+
+
+@pytest.mark.cuda
+def test_up_form_rejects_bad_inputs(cuda):
+    """The up form raises, launching nothing, on what it does not take: an
+    odd size, a low-resolution map not half the skip, float32, a
+    misaligned skip, a gradient asked for."""
+    args = _up_form_args(2, 16, 16, 16, 8, cuda, seed=0)
+    skip, low = args[:2]
+    bad = [
+        (_up_form_args(2, 15, 16, 16, 8, cuda, seed=0), ValueError),
+        ((skip, low[:, :4], *args[2:]), ValueError),
+        (tuple(a.float() for a in args), TypeError),
+        ((torch.empty(skip.numel() + 1, dtype=skip.dtype, device=cuda)[1:].view(skip.shape),
+          *args[1:]), ValueError),
+        ((skip, low, args[2].clone().requires_grad_(), *args[3:]), ValueError),
+    ]
+    before = (dcm.fused_double_conv.launches, dcm.fused_double_conv.up_launches)
+    for case, err in bad:
+        with pytest.raises(err):
+            dcm.fused_up_double_conv(*case)
+    assert (dcm.fused_double_conv.launches, dcm.fused_double_conv.up_launches) == before
 
 
 @pytest.mark.cuda
